@@ -1,0 +1,131 @@
+"""The kernel-backed field and the fused march at the shapes ``core/`` uses
+(``repro.kernels.ops``).
+
+  hash_encode(points, tables, cfg)         -> (N, L*F)
+  density_mlp(enc, weights, cfg)           -> (sigma (N,), geo (N, G))
+  color_mlp(geo, dirs, weights, cfg)       -> rgb (N, 3)
+  fused_march_blocks(res, acfg, o, d, bud) -> (rgb, acc, depth, chunks,
+                                               ray_chunks)
+
+``field_fns(field)`` returns a FieldFns whose density and color run the
+CUDA kernels and which carries ``FusedMarchResources``, so
+``ASDRConfig.march_backend="fused"`` sends Phase II to the fused march.
+Weights stay at their true widths, row-major (fan_in, fan_out) fp32,
+packed flat once per field (``fused_mlp.pack_chain``).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core import mlp as mlp_lib
+from ..core import rendering, scene
+from ..core.fields import FieldFns
+from . import fused_march as FMA
+from . import fused_mlp as FM
+from . import hash_encode as HE
+
+TABLE_SUPPLIES = ("auto", "resident", "streamed")
+
+# The march's scalars as float32 values, so the kernel (float arguments)
+# and its plain version (python scalars against float32 tensors) use the
+# same numbers.
+NEAR32 = float(np.float32(scene.NEAR))
+FAR32 = float(np.float32(scene.FAR))
+LOG_EPS_T32 = float(np.float32(math.log(rendering.EARLY_TERM_TRANSMITTANCE)))
+
+
+def hash_encode(points, tables, cfg):
+    """points (N,3) -> encoding (N, L*F), matching hashgrid.encode."""
+    meta = HE.grid_meta(cfg, points.device)
+    return HE.hash_encode(points.float().contiguous(), meta, tables)
+
+
+def density_mlp(enc, weights, cfg: mlp_lib.MLPConfig):
+    """enc (N, D), weights = (flat, dims) of the density chain ->
+    (sigma (N,), geo (N, G))."""
+    out = FM.density_mlp(enc.float().contiguous(), *weights)
+    return out[:, 0], out[:, 1:1 + cfg.geo_feature_dim]
+
+
+def color_mlp(geo, dirs, weights, cfg: mlp_lib.MLPConfig):
+    """(geo (N,G), dirs (N,3)), weights = (flat, dims) of the color chain
+    -> rgb (N,3)."""
+    cin = torch.cat([geo.float(), mlp_lib.sh_encode(dirs, cfg.sh_degree)],
+                    dim=-1).contiguous()
+    return FM.color_mlp(cin, *weights)
+
+
+class FusedMarchResources:
+    """Device-resident inputs of the fused march: grid meta, tables and the
+    two packed weight chains of one field."""
+
+    def __init__(self, field):
+        cfg = field.cfg
+        self.meta = HE.grid_meta(cfg.grid, field.grid.device)
+        self.tables = field.grid
+        self.density = FM.pack_chain(field.density_weights)
+        self.color = FM.pack_chain(field.color_weights)
+        self.net = cfg.net
+
+
+def fused_march_blocks(res: FusedMarchResources, acfg, o_b, d_b, budgets,
+                       density_only: bool = False):
+    """Run the single-kernel march over a batch of blocks.
+
+    o_b/d_b (N, B, 3), budgets (N,) int32 -> (rgb (N,B,3), acc (N,B),
+    depth (N,B), chunks (N,), ray_chunks (N,B)) with
+    core.pipeline._march_block semantics.  SH features are computed once
+    per ray here.  ``acfg.march_table_streaming`` is validated; on the GPU
+    every value means the one table supply (device memory through L2).
+    """
+    if acfg.march_table_streaming not in TABLE_SUPPLIES:
+        raise ValueError(f"march_table_streaming="
+                         f"{acfg.march_table_streaming!r} not in "
+                         f"{TABLE_SUPPLIES}")
+    N, B, _ = o_b.shape
+    o = o_b.float().reshape(N * B, 3).contiguous()
+    d = d_b.float().reshape(N * B, 3).contiguous()
+    sh = None if density_only else mlp_lib.sh_encode(d, res.net.sh_degree).contiguous()
+    out = FMA.fused_march(
+        o, d, sh, budgets.to(torch.int32).contiguous(), res.meta, res.tables,
+        *res.density, *res.color, block_size=B, chunk=acfg.chunk,
+        group=acfg.group, near=NEAR32, far=FAR32, log_eps_t=LOG_EPS_T32,
+        early_term=acfg.early_termination,
+        white_background=acfg.white_background, with_color=not density_only,
+        per_ray_exit=acfg.per_ray_early_exit)
+    out = out.reshape(N, B, FMA.OUT_W)
+    return (out[:, :, 1:4], out[:, :, 0], out[:, :, 4],
+            out[:, 0, 5].to(torch.int32), out[:, :, 6].to(torch.int32))
+
+
+def field_fns(field) -> FieldFns:
+    """Kernel-backed FieldFns of an ``NGPField``, carrying the fused-march
+    resources."""
+    cfg = field.cfg
+    res = FusedMarchResources(field)
+
+    def density(points):
+        enc = hash_encode(points, field.grid, cfg.grid)
+        sigma, geo = density_mlp(enc, res.density, cfg.net)
+        inside = torch.all((points >= 0.0) & (points <= 1.0), dim=-1)
+        return torch.where(inside, sigma, 0.0), geo
+
+    def color(geo, dirs):
+        return color_mlp(geo, dirs, res.color, cfg.net)
+
+    return FieldFns(density=density, color=color, fused=res)
+
+
+KERNELS = (HE.hash_encode, FM.density_mlp, FM.color_mlp, FMA.fused_march)
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
