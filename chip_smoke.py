@@ -2,15 +2,17 @@
 """Chip smoke of the PyTorch/CUDA port: ``python3 chip_smoke.py`` from the
 root of a checkout, on a machine with one NVIDIA H100.
 
-1. Builds the four CUDA kernels from the three sources in
+1. Builds the seven CUDA kernels from the five sources in
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
    source, all started together).
 2. Runs each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: the hash encode, density and color MLPs on the
-   Phase-I probe samples of an 800x800 frame (25,600 rays x 192), and the
-   fused march on the frame's 157 blocks of 4,096 rays with budgets drawn
-   across the whole ladder (plain, density-only and per-ray exit).
-   Tolerance rtol 1e-4 / atol 1e-5; the march's chunk counters exactly.
+   main path's shapes: the hash encode, density and color MLPs and the
+   fused field (both chains in one kernel, also held bit for bit against
+   the density -> color kernel pair) on the Phase-I probe samples of an
+   800x800 frame (25,600 rays x 192), and the fused march on the frame's
+   157 blocks of 4,096 rays with budgets drawn across the whole ladder
+   (plain, density-only and per-ray exit).  Tolerance rtol 1e-4 / atol
+   1e-5; the march's chunk counters exactly.
 3. Renders the frame end to end at the paper's config
    (``configs/ingp_asdr.py`` CONFIG): the kernel path with
    ``march_backend="fused"`` (its launch counts are read from this run),
@@ -18,6 +20,21 @@ root of a checkout, on a machine with one NVIDIA H100.
    The count maps of the kernel and plain paths may differ in at most
    0.1 % of pixels, and their PSNRs against the plain fixed-192 render
    of the same view by at most 0.1 dB.
+4. Renders the §4.3 decoupled frame of the same view
+   (``decouple.render_decoupled`` through the kernel field, in ray
+   chunks), then composites its kept samples with one ``volume_render``
+   launch over the whole frame (640,000 rays x 192 samples, 96 anchors),
+   held against the plain version and against render_decoupled's image
+   (rtol 1e-4 / atol 1e-5).  Prints the PSNR and SSIM of the decoupled
+   frame and of the naive half-sample frame against the fixed-192 render.
+5. Runs flash attention at gemma2-27b's attention widths (B 1, S 8,192,
+   32 query heads over 16 KV heads, head_dim 128) for its local layer
+   (window 4096, softcap 50), its global layer (softcap 50) and the global
+   layer without softcap, in fp32 against the plain version (rtol 2e-4 /
+   atol 2e-5), and the local layer in bf16 (3e-2).
+
+Each phase's entry points run once with every launch count set to 0 just
+before, and the run fails unless each kernel of that path launched.
 
 The weights are random, drawn with numpy from ``SEED`` in the reference
 layout: Glorot-uniform MLPs and hash tables uniform(-TABLE_SCALE,
@@ -26,7 +43,9 @@ the frame holds several rungs of the count ladder and most Phase-II
 blocks saturate before their budget (both asserted): the adaptive path and
 the early-exit path both run.
 
-Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
+``[decoupled]`` and ``[attention]``.  Prints one ``{"kernels": [...]}``
+line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
@@ -44,11 +63,23 @@ SEED = 8
 TABLE_SCALE = 30.0
 CAMERA = dict(theta=0.9, phi=0.55)
 RTOL, ATOL = 1e-4, 1e-5
+ATTN_TOL = {"fp32": (2e-4, 2e-5), "bf16": (3e-2, 3e-2)}   # rtol, atol
 MAX_COUNT_DIFF = 1e-3         # share of count-map pixels
 MAX_PSNR_DIFF = 0.1           # dB
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
+# and the dense bf16 tensor cores (stated beside attention's bound).
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_BF16_TC = 989e12
+FRAME_KERNELS = ("hash_encode", "density_mlp", "color_mlp", "fused_march")
+DECOUPLED_KERNELS = ("hash_encode", "density_mlp", "color_mlp",
+                     "volume_render")
+DECOUPLED_RAYS_PER_CALL = 1 << 16
+ATTN_SEQ = 8192
+# fp32 operations of one sample of the volume render: sigma*delta, two
+# negations and two exps, 1 - e, the weight, the running sum, acc and the
+# lerp offset (10), then per channel the lerp (3) and the weighted add (2).
+VOLUME_RENDER_FLOP = 10 + 3 * 5
 # fp32 operations of one trilinear encode of one point at one level:
 # 3 scales + 3 fracs, then per corner 2 weight products and F
 # multiply-adds (F = 2).
@@ -82,16 +113,54 @@ def timed(fn, dev, reps: int):
     return out, 1e3 * (time.perf_counter() - t0) / reps
 
 
-def max_err(got, want):
-    """(max abs error, within rtol/atol)."""
+def max_err(got, want, rtol=RTOL, atol=ATOL):
+    """(max abs error, within rtol/atol), compared in fp32."""
     import torch
+    got, want = got.float(), want.float()
     err = float(torch.max(torch.abs(got - want))) if got.numel() else 0.0
-    return err, bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+    return err, bool(torch.allclose(got, want, rtol=rtol, atol=atol))
+
+
+def check(name, got, want, ms, plain_ms, flop, nbytes, library_ms=None,
+          rtol=RTOL, atol=ATOL):
+    """Print one kernel's reading, fail on disagreement, return it."""
+    err, ok = max_err(got, want, rtol, atol)
+    b_ms, b_by = bound(flop, nbytes)
+    print(f"[kernel] {name}: max_abs_err={err:.3e} ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
+          f"library_ms={library_ms}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"(max abs err {err})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def kernel_row(name, src, replaces, *args, **kw):
+    """The JSON row of one kernel (launches filled in from its path)."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": 0, **check(name, *args, **kw)}
+
+
+def path_launches(names, fn):
+    """``fn()`` with every launch count set to 0 just before; fails unless
+    each kernel of ``names`` launched in it.  Returns (what fn returned,
+    {name: launches})."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    counts = ops.launch_counts()
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on its path")
+    return out, {name: counts[name] for name in names}
 
 
 def check_kernels(field, bundle, cam, dev, reps=3):
     """Each kernel against its plain version at the main path's shapes.
-    Returns the kernel rows of the JSON line (launches filled in later)."""
+    Returns the kernel rows of the JSON line (launches filled in later)
+    and the fused field's launches on its path."""
     import numpy as np
     import torch
     from repro_torch.core import mlp as mlp_lib
@@ -117,24 +186,8 @@ def check_kernels(field, bundle, cam, dev, reps=3):
     meta, tables = res.meta, res.tables
     L, T, F = tables.shape
 
-    def check(name, got, want, ms, plain_ms, flop, nbytes, library_ms=None):
-        """Print one kernel's reading, fail on disagreement, return it."""
-        err, ok = max_err(got, want)
-        b_ms, b_by = bound(flop, nbytes)
-        print(f"[kernel] {name}: max_abs_err={err:.3e} ms={ms:.3f} "
-              f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
-              f"library_ms={library_ms}", flush=True)
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"(max abs err {err})")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-
-    def row(name, src, replaces, *args, **kw):
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{src}",
-                     "replaces": replaces, "launches": 0,
-                     **check(name, *args, **kw)})
+    def row(*args, **kw):
+        rows.append(kernel_row(*args, **kw))
 
     # ---- hash encode on the Phase-I samples
     enc, ms = timed(lambda: HE.hash_encode(pts, meta, tables), dev, reps)
@@ -168,9 +221,8 @@ def check_kernels(field, bundle, cam, dev, reps=3):
     del dout_p
 
     # ---- color MLP on the same rows: [geo, SH(dir)]
-    cin = torch.cat([dout[:, 1:], mlp_lib.sh_encode(dirs, net.sh_degree)],
-                    dim=-1).contiguous()
-    del enc
+    sh = mlp_lib.sh_encode(dirs, net.sh_degree).contiguous()
+    cin = torch.cat([dout[:, 1:], sh], dim=-1).contiguous()
     wc, dims_c = res.color
     ws_c = FM.unpack_chain(wc, dims_c)
 
@@ -188,7 +240,42 @@ def check_kernels(field, bundle, cam, dev, reps=3):
         rgb, rgb_p, ms, plain_ms, flop=n * fl_d["color_flops"],
         nbytes=4 * (cin.numel() + rgb.numel() + wc.numel()),
         library_ms=lib_ms)
-    del rgb_p, cin, dout, pts, dirs
+    del rgb_p, cin
+
+    # ---- fused field on the same rows: its entry point once, then the
+    # kernel against its plain version and, bit for bit, against the
+    # density -> color kernel pair above
+    (sig_f, rgb_f, geo_f), ff_launches = path_launches(
+        ("fused_field",), lambda: ops.fused_field(enc, dirs, res, net))
+    pair_exact = (torch.equal(sig_f, dout[:, 0]) and torch.equal(rgb_f, rgb)
+                  and torch.equal(geo_f, dout[:, 1:]))
+    print(f"[kernel] fused_field: bit-equal to the density_mlp -> color_mlp "
+          f"kernel pair: {pair_exact}", flush=True)
+    if not pair_exact:
+        raise AssertionError("fused_field differs from the density_mlp -> "
+                             "color_mlp kernel pair")
+    del sig_f, rgb_f, geo_f
+
+    def fused_matmul():
+        dm = density_matmul()
+        h = torch.cat([dm[:, 1:], sh], 1)
+        for w in ws_c[:-1]:
+            h = torch.relu(h @ w)
+        return torch.cat([dm[:, :1], torch.sigmoid(h @ ws_c[-1]), dm[:, 1:]],
+                         1)
+
+    ff, ms = timed(lambda: FM.fused_field(enc, sh, wd, dims_d, wc, dims_c),
+                   dev, reps)
+    ff_p, plain_ms = timed(
+        lambda: FM.fused_field_plain(enc, sh, wd, dims_d, wc, dims_c), dev, 1)
+    _, lib_ms = timed(fused_matmul, dev, reps)
+    row("fused_field", "fused_mlp.cu", "src/repro/kernels/fused_mlp.py:116",
+        ff, ff_p, ms, plain_ms,
+        flop=n * (fl_d["density_flops"] + fl_d["color_flops"]),
+        nbytes=4 * (enc.numel() + sh.numel() + ff.numel() + wd.numel()
+                    + wc.numel()),
+        library_ms=lib_ms)
+    del ff, ff_p, enc, sh, rgb, dout, pts, dirs
 
     # ---- fused march on the frame's blocks, budgets across the ladder
     B, C = acfg.block_size, acfg.chunk
@@ -255,7 +342,7 @@ def check_kernels(field, bundle, cam, dev, reps=3):
                 "src/repro/kernels/fused_march.py:329", out, out_p, ms,
                 plain_ms, flop, nbytes)
         del out, out_p
-    return rows
+    return rows, ff_launches
 
 
 def sync(dev):
@@ -288,7 +375,7 @@ def fixed_reference(fns, cam, ns, dev, rays_per_call=1 << 15):
 
 def run_frames(field, bundle, cam, dev):
     """The main path end to end; returns the launch counts of the fused
-    frame."""
+    frame and the plain fixed-``ns_full`` render of the view."""
     import dataclasses
     import numpy as np
     import torch
@@ -300,14 +387,10 @@ def run_frames(field, bundle, cam, dev):
     fused = dataclasses.replace(bundle.asdr, march_backend="fused")
     reference = dataclasses.replace(bundle.asdr, march_backend="reference")
 
-    ops.reset_launch_counts()
-    img_k, st_k, ms_k = render_frame(fns_k, fused, cam, dev)
-    launches = ops.launch_counts()
+    (img_k, st_k, ms_k), launches = path_launches(
+        FRAME_KERNELS, lambda: render_frame(fns_k, fused, cam, dev))
     print(f"[frame] kernel path, fused march: {ms_k:.1f} ms (first run); "
           f"launches {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
     _, _, ms_k2 = render_frame(fns_k, fused, cam, dev)
     sync(dev)
     t0 = time.perf_counter()
@@ -362,12 +445,143 @@ def run_frames(field, bundle, cam, dev):
     if abs(p_k - p_p) > MAX_PSNR_DIFF or abs(p_r - p_p) > MAX_PSNR_DIFF:
         raise AssertionError(f"PSNR gap {p_k - p_p:.4f} / {p_r - p_p:.4f} dB "
                              f"(limit {MAX_PSNR_DIFF})")
-    return launches
+    return launches, ref
 
 
-def run(dev, bundle, hw, reps=3):
-    """Phases 2 and 3 on ``dev`` at ``bundle`` and image size ``hw``;
-    returns the kernel rows of the JSON line."""
+def run_decoupled(field, bundle, cam, ref, dev, reps=3):
+    """The §4.3 decoupled frame through the kernel field in ray chunks,
+    then one volume_render launch on its kept samples.  Returns the
+    volume_render row and its launches on the path."""
+    import torch
+    from repro_torch.core import decouple, rendering, scene
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import volume_render as VR
+
+    acfg = bundle.asdr
+    S, g, wb = acfg.ns_full, acfg.group, acfg.white_background
+    H, W = cam.height, cam.width
+    R, step = H * W, DECOUPLED_RAYS_PER_CALL
+    fns = ops.field_fns(field)
+    o, d = scene.camera_rays(cam, device=dev)
+
+    def frame():
+        parts = [decouple.render_decoupled(fns, o[s:s + step], d[s:s + step],
+                                           S, group=g, white_background=wb,
+                                           keep_samples=True)
+                 for s in range(0, R, step)]
+        rgb = torch.cat([p[0] for p in parts])
+        kept = [torch.cat([p[1][k] for p in parts])
+                for k in ("sigmas", "anchor_colors", "deltas")]
+        del parts
+        vr_rgb, _ = ops.volume_render(*kept, g, white_background=wb)
+        return rgb, kept, vr_rgb
+
+    sync(dev)
+    t0 = time.perf_counter()
+    (rgb, (sig, anch, dl), vr_rgb), launches = path_launches(
+        DECOUPLED_KERNELS, frame)
+    sync(dev)
+    ms_frame = 1e3 * (time.perf_counter() - t0)
+    A = anch.shape[1]
+    print(f"[decoupled] frame (render_decoupled in chunks of {step} rays, "
+          f"then volume_render on R={R} S={S} A={A}): {ms_frame:.1f} ms; "
+          f"launches {launches}", flush=True)
+
+    err_f, ok_f = max_err(vr_rgb, rgb)
+    print(f"[decoupled] volume_render rgb vs render_decoupled rgb: "
+          f"max_abs_err={err_f:.3e}", flush=True)
+    if not ok_f:
+        raise AssertionError(f"volume_render's frame differs from "
+                             f"render_decoupled's (max abs err {err_f})")
+    out, ms = timed(lambda: VR.volume_render(sig, dl, anch, g), dev, reps)
+    out_p, plain_ms = timed(lambda: VR.volume_render_plain(sig, dl, anch, g),
+                            dev, 1)
+    print(f"[decoupled] volume_render bit-equal to its plain version: "
+          f"{torch.equal(out, out_p)}", flush=True)
+    row = kernel_row("volume_render", "volume_render.cu",
+                     "src/repro/kernels/volume_render.py:75", out, out_p, ms,
+                     plain_ms, flop=VOLUME_RENDER_FLOP * R * S,
+                     nbytes=4 * (2 * R * S + 3 * R * A + 4 * R))
+    del out, out_p, sig, anch, dl, vr_rgb
+
+    naive = torch.cat([decouple.render_naive_reduced(
+        fns, o[s:s + step], d[s:s + step], S, factor=2)
+        for s in range(0, R, step)])
+    saved = decouple.mlp_flops_saved(bundle.model, S, g)
+    for tag, img in ((f"decoupled group {g}", rgb), (f"naive {S // 2} samples",
+                                                     naive)):
+        img = img.reshape(H, W, 3)
+        p, q = float(rendering.psnr(img, ref)), float(rendering.ssim(img, ref))
+        print(f"[decoupled] {tag} vs plain fixed-{S}: PSNR {p:.4f} dB, "
+              f"SSIM {q:.5f}", flush=True)
+        if not (math.isfinite(p) and math.isfinite(q)
+                and bool(torch.isfinite(img).all())):
+            raise AssertionError(f"{tag}: non-finite frame")
+    print(f"[decoupled] MLP FLOPs saved by decoupling (analytic): "
+          f"{saved['reduction_fraction']:.4f}", flush=True)
+    return row, {"volume_render": launches["volume_render"]}
+
+
+def run_attention(cfg, seq, dev, reps=3):
+    """Flash attention at ``cfg``'s attention widths on one sequence of
+    ``seq`` tokens: the local layer, the global layer, the global layer
+    without softcap (the library's case) in fp32, the local layer in bf16.
+    Returns the no-softcap row and the kernel's launches on the path."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    B, S, H, KV, Dh = 1, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(SEED)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to(dev) for shape in ((B, S, H, Dh), (B, S, KV, Dh),
+                                      (B, S, KV, Dh)))
+    bf16 = tuple(t.to(torch.bfloat16) for t in (q, k, v))
+    settings = [("local", (q, k, v), cfg.window, cfg.attn_softcap),
+                ("global", (q, k, v), 0, cfg.attn_softcap),
+                ("global no softcap", (q, k, v), 0, 0.0),
+                ("local bf16", bf16, cfg.window, cfg.attn_softcap)]
+    outs, launches = path_launches(("flash_attention",), lambda: [
+        FA.flash_attention(*x, window=w, softcap=c) for _, x, w, c in settings])
+    row = None
+    for (tag, x, w, c), out in zip(settings, outs):
+        rtol, atol = ATTN_TOL["bf16" if x[0].dtype == torch.bfloat16 else "fp32"]
+        _, ms = timed(lambda: FA.flash_attention(*x, window=w, softcap=c), dev,
+                      reps)
+        want, plain_ms = timed(lambda: FA.flash_attention_plain(*x, w, c),
+                               dev, 1)
+        pairs = sum(min(i + 1, w or S) for i in range(S))
+        flop = 4 * Dh * B * H * pairs
+        nbytes = x[0].element_size() * 2 * (x[0].numel() + x[1].numel())
+        lib_ms = None
+        if tag == "global no softcap":
+            qt, kt, vt = (t.transpose(1, 2) for t in x)
+            lib, lib_ms = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), dev, reps)
+            print(f"[attention] scaled_dot_product_attention vs the kernel: "
+                  f"max_abs_err={max_err(lib.transpose(1, 2), out)[0]:.3e}",
+                  flush=True)
+            del lib
+        print(f"[attention] {tag} (window {w}, softcap {c}, "
+              f"{x[0].dtype}): {pairs} causal pairs, {flop / 1e9:.1f} GFLOP; "
+              f"bound on the dense bf16 tensor cores "
+              f"{1e3 * flop / PEAK_BF16_TC:.3f} ms", flush=True)
+        args = (out, want, ms, plain_ms, flop, nbytes)
+        if tag == "global no softcap":
+            row = kernel_row("flash_attention", "flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:86", *args,
+                             library_ms=lib_ms, rtol=rtol, atol=atol)
+        else:
+            check(f"flash_attention {tag}", *args, rtol=rtol, atol=atol)
+        del want
+    return row, launches
+
+
+def run(dev, bundle, hw, attn, seq, reps=3):
+    """Phases 2-5 on ``dev`` at ``bundle``, image size ``hw``, attention
+    widths ``attn`` and ``seq`` tokens; returns the kernel rows of the JSON
+    line."""
     from repro_torch import params
     from repro_torch.core import scene
 
@@ -375,8 +589,12 @@ def run(dev, bundle, hw, reps=3):
         params.random_params(bundle.model, SEED, TABLE_SCALE), bundle.model,
         device=dev)
     cam = scene.look_at_camera(hw[0], hw[1], **CAMERA)
-    rows = check_kernels(field, bundle, cam, dev, reps)
-    launches = run_frames(field, bundle, cam, dev)
+    rows, launches = check_kernels(field, bundle, cam, dev, reps)
+    frame_launches, ref = run_frames(field, bundle, cam, dev)
+    vr_row, vr_launches = run_decoupled(field, bundle, cam, ref, dev, reps)
+    fa_row, fa_launches = run_attention(attn, seq, dev, reps)
+    rows += [vr_row, fa_row]
+    launches.update(**frame_launches, **vr_launches, **fa_launches)
     for r in rows:
         r["launches"] = launches[r["name"]]
     return rows
@@ -391,7 +609,7 @@ def main() -> int:
         print("chip_smoke: run from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import ingp_asdr
+    from repro_torch.configs import gemma2_27b, ingp_asdr
     from repro_torch.kernels import _build
 
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -407,7 +625,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     bundle = ingp_asdr.CONFIG
-    rows = run(dev, bundle, bundle.image_hw)
+    rows = run(dev, bundle, bundle.image_hw, gemma2_27b.CONFIG, ATTN_SEQ)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -44,6 +44,33 @@ def expected_termination_depth(weights, ts, acc, far: float):
     return torch.sum(weights * ts, dim=-1) + (1.0 - acc) * far
 
 
+def early_termination_counts(alphas):
+    """Number of samples each ray needs before T drops below the
+    early-termination threshold (the ideal per-ray count of §6.6)."""
+    trans = transmittance(alphas)
+    return torch.sum(trans >= EARLY_TERM_TRANSMITTANCE, dim=-1)
+
+
 def psnr(img, ref):
     mse = torch.mean((img - ref) ** 2)
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def ssim(img, ref, window: int = 8):
+    """Simplified SSIM over non-overlapping windows; img/ref (H, W, 3) in
+    [0, 1]."""
+    H, W, C = img.shape
+    h, w = H // window * window, W // window * window
+
+    def blocks(x):
+        x = x[:h, :w].reshape(h // window, window, w // window, window, C)
+        return x.permute(0, 2, 1, 3, 4).reshape(-1, window * window, C)
+
+    a, b = blocks(img), blocks(ref)
+    mu_a, mu_b = a.mean(dim=1), b.mean(dim=1)
+    var_a, var_b = a.var(dim=1, correction=0), b.var(dim=1, correction=0)
+    cov = ((a - mu_a[:, None]) * (b - mu_b[:, None])).mean(dim=1)
+    c1, c2 = 0.01**2, 0.03**2
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
+        (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2))
+    return s.mean()

@@ -8,9 +8,11 @@ after its launch.  The libraries land in ``kernels/build/`` (listed in
 so an edit rebuilds and an unchanged tree reuses what it built.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
-Every kernel is compiled with ``--fmad=false``: the plain PyTorch
-versions round each product and each sum on its own, and the kernels
-must too for the march's chunk counters to agree exactly.
+The kernels held to their plain versions bit for bit are compiled with
+``--fmad=false``: the plain PyTorch versions round each product and each
+sum on its own, and the kernels must too for the march's chunk counters
+to agree exactly.  ``flash_attention`` is held by tolerance and lets
+nvcc contract multiply-adds (``FMAD_SOURCES``).
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("hash_encode", "fused_mlp", "fused_march")
+SOURCES = ("hash_encode", "fused_mlp", "fused_march", "volume_render",
+           "flash_attention")
+FMAD_SOURCES = ("flash_attention",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -46,11 +49,16 @@ def nvcc() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return NVCC_FLAGS + (() if name in FMAD_SOURCES else ("--fmad=false",))
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -66,7 +74,7 @@ def build_all() -> Dict[str, dict]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -30,12 +30,12 @@ import numpy as np
 import torch
 
 from . import _build
-from .fused_mlp import check_dims, chain_plain, sigmoid_plain, trunc_exp_plain
+from .fused_mlp import (SMEM_LIMIT, chain_plain, chain_size, check_dims,
+                        sigmoid_plain, trunc_exp_plain)
 from .hash_encode import MAX_FEAT, hash_encode_plain
 
 OUT_W = 8
 MAX_CHUNK = 64
-SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use (H100)
 # The plain version marches blocks side by side in groups of at most this
 # many samples per chunk.
 PLAIN_SAMPLES_PER_CALL = 1 << 22
@@ -152,9 +152,7 @@ def _fn():
 
 
 def smem_bytes(dims_d, dims_c, n_levels: int) -> int:
-    def chain(dims):
-        return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-    return 4 * (chain(dims_d) + chain(dims_c)) + 12 * n_levels
+    return 4 * (chain_size(dims_d) + chain_size(dims_c)) + 12 * n_levels
 
 
 def fused_march(o, d, sh, budgets, meta, tables, wd, dims_d, wc, dims_c, *,

@@ -4,6 +4,9 @@
   hash_encode(points, tables, cfg)         -> (N, L*F)
   density_mlp(enc, weights, cfg)           -> (sigma (N,), geo (N, G))
   color_mlp(geo, dirs, weights, cfg)       -> rgb (N, 3)
+  fused_field(enc, dirs, res, cfg)         -> (sigma (N,), rgb (N, 3),
+                                               geo (N, G))
+  volume_render(sigmas, anchors, deltas, group) -> (rgb (R, 3), acc (R,))
   fused_march_blocks(res, acfg, o, d, bud) -> (rgb, acc, depth, chunks,
                                                ray_chunks)
 
@@ -23,9 +26,11 @@ import torch
 from ..core import mlp as mlp_lib
 from ..core import rendering, scene
 from ..core.fields import FieldFns
+from . import flash_attention as FA
 from . import fused_march as FMA
 from . import fused_mlp as FM
 from . import hash_encode as HE
+from . import volume_render as VR
 
 TABLE_SUPPLIES = ("auto", "resident", "streamed")
 
@@ -56,6 +61,34 @@ def color_mlp(geo, dirs, weights, cfg: mlp_lib.MLPConfig):
     cin = torch.cat([geo.float(), mlp_lib.sh_encode(dirs, cfg.sh_degree)],
                     dim=-1).contiguous()
     return FM.color_mlp(cin, *weights)
+
+
+def fused_field(enc, dirs, res, cfg: mlp_lib.MLPConfig):
+    """(enc (N, D), dirs (N, 3)) -> (sigma (N,), rgb (N, 3), geo (N, G)):
+    both chains in one kernel.  ``res`` is a ``FusedMarchResources`` or
+    the ((flat, dims) density, (flat, dims) color) pair of packed chains."""
+    density, color = ((res.density, res.color)
+                      if isinstance(res, FusedMarchResources) else res)
+    sh = mlp_lib.sh_encode(dirs, cfg.sh_degree).float().contiguous()
+    out = FM.fused_field(enc.float().contiguous(), sh, *density, *color)
+    return out[:, 0], out[:, 1:4], out[:, 4:4 + cfg.geo_feature_dim]
+
+
+def volume_render(sigmas, anchor_colors, deltas, group: int, valid=None,
+                  white_background: bool = True):
+    """Decoupled compositing: sigmas/deltas (R, S), anchor colors
+    (R, A, 3) with A = ceil(S / group) -> (rgb (R, 3), acc (R,)).  A
+    ``valid`` (R, S) mask zeroes sigma; the white background is added
+    after the kernel."""
+    sig = sigmas.float()
+    if valid is not None:
+        sig = torch.where(valid, sig, 0.0)
+    out = VR.volume_render(sig.contiguous(), deltas.float().contiguous(),
+                           anchor_colors.float().contiguous(), group)
+    acc, rgb = out[:, 0], out[:, 1:4]
+    if white_background:
+        rgb = rgb + (1.0 - acc[:, None])
+    return rgb, acc
 
 
 class FusedMarchResources:
@@ -119,7 +152,8 @@ def field_fns(field) -> FieldFns:
     return FieldFns(density=density, color=color, fused=res)
 
 
-KERNELS = (HE.hash_encode, FM.density_mlp, FM.color_mlp, FMA.fused_march)
+KERNELS = (HE.hash_encode, FM.density_mlp, FM.color_mlp, FMA.fused_march,
+           FM.fused_field, VR.volume_render, FA.flash_attention)
 
 
 def launch_counts() -> dict:

@@ -81,8 +81,14 @@ def test_cpu_tensors_take_the_plain_versions():
                                march_backend="fused")
     pipeline.render_asdr_image(fns, acfg, scene.look_at_camera(8, 8, 0.7, 0.5),
                                device="cpu")
-    assert ops.launch_counts() == {"hash_encode": 0, "density_mlp": 0,
-                                   "color_mlp": 0, "fused_march": 0}
+    enc = torch.zeros((5, cfg.net.encoding_dim))
+    dirs = torch.nn.functional.normalize(torch.ones((5, 3)), dim=-1)
+    ops.fused_field(enc, dirs, fns.fused, cfg.net)
+    ops.volume_render(torch.ones((5, 8)), torch.ones((5, 4, 3)),
+                      torch.ones((5, 8)), 2)
+    assert ops.launch_counts() == {
+        "hash_encode": 0, "density_mlp": 0, "color_mlp": 0, "fused_march": 0,
+        "fused_field": 0, "volume_render": 0, "flash_attention": 0}
     assert not _build._libs
 
 
