@@ -12,7 +12,12 @@ root of a checkout, on a machine with one NVIDIA H100.
    800x800 frame (25,600 rays x 192), and the fused march on the frame's
    157 blocks of 4,096 rays with budgets drawn across the whole ladder
    (plain, density-only and per-ray exit).  Tolerance rtol 1e-4 / atol
-   1e-5; the march's chunk counters exactly.
+   1e-5; the march's chunk counters exactly; the color MLP and the fused
+   field (register-tiled chains, one rounding per multiply-add in color)
+   at max abs error 0 against their fma-emulating plain versions, which
+   run in chunks of ``PLAIN_ROWS`` rows, and the color MLP once more on a
+   ragged, unaligned slice.  ptxas must report a 0-byte stack frame and no
+   spills for the two tile kernels.
 3. Renders the frame end to end at the paper's config
    (``configs/ingp_asdr.py`` CONFIG): the kernel path with
    ``march_backend="fused"`` (its launch counts are read from this run),
@@ -75,6 +80,12 @@ FRAME_KERNELS = ("hash_encode", "density_mlp", "color_mlp", "fused_march")
 DECOUPLED_KERNELS = ("hash_encode", "density_mlp", "color_mlp",
                      "volume_render")
 DECOUPLED_RAYS_PER_CALL = 1 << 16
+# The fma-emulating plain versions of the tile kernels run in row chunks:
+# one float64 temporary of a 4,915,200 x 128 layer step would be 5 GB.
+PLAIN_ROWS = 1 << 20
+# The register-tiled kernels: ptxas must give each a 0-byte stack frame
+# and no spills.
+TILE_KERNELS = ("color_mlp_kernel", "fused_field_kernel")
 ATTN_SEQ = 8192
 # fp32 operations of one sample of the volume render: sigma*delta, two
 # negations and two exps, 1 - e, the weight, the running sum, acc and the
@@ -121,10 +132,20 @@ def max_err(got, want, rtol=RTOL, atol=ATOL):
     return err, bool(torch.allclose(got, want, rtol=rtol, atol=atol))
 
 
+def in_chunks(fn, *rows, rest=(), step=PLAIN_ROWS):
+    """fn(*chunk of each of ``rows``, *rest), concatenated over row chunks
+    of at most ``step``."""
+    import torch
+    return torch.cat([fn(*(r[s:s + step] for r in rows), *rest)
+                      for s in range(0, rows[0].shape[0], step)])
+
+
 def check(name, got, want, ms, plain_ms, flop, nbytes, library_ms=None,
-          rtol=RTOL, atol=ATOL):
-    """Print one kernel's reading, fail on disagreement, return it."""
+          rtol=RTOL, atol=ATOL, exact=False):
+    """Print one kernel's reading, fail on disagreement (any at all where
+    ``exact``), return it."""
     err, ok = max_err(got, want, rtol, atol)
+    ok = ok and (err == 0.0 or not exact)
     b_ms, b_by = bound(flop, nbytes)
     print(f"[kernel] {name}: max_abs_err={err:.3e} ms={ms:.3f} "
           f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
@@ -233,14 +254,25 @@ def check_kernels(field, bundle, cam, dev, reps=3):
         return torch.sigmoid(h @ ws_c[-1])
 
     rgb, ms = timed(lambda: FM.color_mlp(cin, wc, dims_c), dev, reps)
-    rgb_p, plain_ms = timed(lambda: FM.color_mlp_plain(cin, wc, dims_c),
-                            dev, 1)
+    rgb_p, plain_ms = timed(lambda: in_chunks(
+        FM.color_mlp_plain, cin, rest=(wc, dims_c)), dev, 1)
     _, lib_ms = timed(color_matmul, dev, reps)
     row("color_mlp", "fused_mlp.cu", "src/repro/kernels/fused_mlp.py:145",
         rgb, rgb_p, ms, plain_ms, flop=n * fl_d["color_flops"],
         nbytes=4 * (cin.numel() + rgb.numel() + wc.numel()),
-        library_ms=lib_ms)
-    del rgb_p, cin
+        library_ms=lib_ms, exact=True)
+    del rgb_p
+    # a ragged tile and an input that is not 16-B aligned (the wrapper
+    # copies it): rows 3 .. 3 + 64k + 37
+    tail = cin[3:3 + 64 * 1601 + 37]
+    err_t, _ = max_err(FM.color_mlp(tail, wc, dims_c),
+                       FM.color_mlp_plain(tail, wc, dims_c))
+    print(f"[kernel] color_mlp on {tail.shape[0]} rows from row 3: "
+          f"max_abs_err={err_t:.3e}", flush=True)
+    if err_t != 0.0:
+        raise AssertionError("color_mlp differs from its plain version on a "
+                             "ragged, unaligned input")
+    del cin, tail
 
     # ---- fused field on the same rows: its entry point once, then the
     # kernel against its plain version and, bit for bit, against the
@@ -266,15 +298,15 @@ def check_kernels(field, bundle, cam, dev, reps=3):
 
     ff, ms = timed(lambda: FM.fused_field(enc, sh, wd, dims_d, wc, dims_c),
                    dev, reps)
-    ff_p, plain_ms = timed(
-        lambda: FM.fused_field_plain(enc, sh, wd, dims_d, wc, dims_c), dev, 1)
+    ff_p, plain_ms = timed(lambda: in_chunks(
+        FM.fused_field_plain, enc, sh, rest=(wd, dims_d, wc, dims_c)), dev, 1)
     _, lib_ms = timed(fused_matmul, dev, reps)
     row("fused_field", "fused_mlp.cu", "src/repro/kernels/fused_mlp.py:116",
         ff, ff_p, ms, plain_ms,
         flop=n * (fl_d["density_flops"] + fl_d["color_flops"]),
         nbytes=4 * (enc.numel() + sh.numel() + ff.numel() + wd.numel()
                     + wc.numel()),
-        library_ms=lib_ms)
+        library_ms=lib_ms, exact=True)
     del ff, ff_p, enc, sh, rgb, dout, pts, dirs
 
     # ---- fused march on the frame's blocks, budgets across the ladder
@@ -600,6 +632,21 @@ def run(dev, bundle, hw, attn, seq, reps=3):
     return rows
 
 
+def ptxas_lines(log):
+    """[(kernel, line)] of ptxas -v's stack-frame / spill and register
+    lines, each with the kernel it belongs to."""
+    out, fn = [], "?"
+    for line in log.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            out.append((fn, line.replace("ptxas info    : ", "")))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -619,9 +666,13 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(built)}",
           flush=True)
     for name, info in built.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for fn, line in ptxas_lines(info["ptxas"]):
+            print(f"[build] {name} {fn}: {line}", flush=True)
+            if (any(k in fn for k in TILE_KERNELS) and "stack frame" in line
+                    and not line.startswith("0 bytes stack frame, 0 bytes "
+                                            "spill stores, 0 bytes spill "
+                                            "loads")):
+                raise AssertionError(f"{fn}: ptxas reports {line}")
 
     dev = torch.device("cuda")
     bundle = ingp_asdr.CONFIG

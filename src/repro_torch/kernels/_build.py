@@ -9,10 +9,14 @@ so an edit rebuilds and an unchanged tree reuses what it built.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
 The kernels held to their plain versions bit for bit are compiled with
-``--fmad=false``: the plain PyTorch versions round each product and each
-sum on its own, and the kernels must too for the march's chunk counters
-to agree exactly.  ``flash_attention`` is held by tolerance and lets
-nvcc contract multiply-adds (``FMAD_SOURCES``).
+``--fmad=false``: where a plain PyTorch version rounds each product and
+each sum on its own, the kernel must too (the march's chunk counters
+agree exactly only so), and nvcc must not contract ``a*b+c`` behind its
+back.  A multiply-add that is meant to round once is written as the
+``__fmaf_rn`` intrinsic, which the flag leaves alone: the color chains of
+``fused_mlp.cu``, whose plain versions emulate ``fmaf``
+(``fused_mlp.fma_plain``).  ``flash_attention`` is held by tolerance and
+lets nvcc contract multiply-adds (``FMAD_SOURCES``).
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ import torch
 from repro.core.model import NGPConfig as JNGPConfig, init_ngp
 from repro.kernels import ops as jops
 from repro_torch import params as tparams
+from repro_torch.configs import ingp_asdr
 from repro_torch.core import mlp as tmlp
 from repro_torch.kernels import fused_mlp as tfm
 from repro_torch.kernels import ops as tops
@@ -77,3 +78,87 @@ def test_fused_field_plain_is_the_kernel_pair(paper_mlp):
     assert torch.equal(packed[:, :1], dout[:, :1])
     assert torch.equal(packed[:, 1:4], rgb)
     assert torch.equal(packed[:, 4:], dout[:, 1:])
+
+
+PAPER_DENSITY = (32, 64, 16)
+PAPER_COLOR = (31, 128, 128, 128, 3)
+
+
+def test_tile_kernels_shared_memory_at_the_paper_widths():
+    """Weights + k-major activations of a 64-row tile + two input tiles:
+    148,480 + 32,768 + 15,872 B for color, 160,768 + 32,768 + 24,576 B for
+    the fused field, both within one CTA's 232,448 B."""
+    assert tfm.TILE_ROWS == 64
+    assert tfm.color_smem_bytes(PAPER_COLOR) == 197_120
+    assert tfm.fused_smem_bytes(PAPER_DENSITY, PAPER_COLOR) == 218_112
+    assert max(197_120, 218_112) <= tfm.SMEM_LIMIT
+    tfm.check_color_chain(PAPER_COLOR)
+    tfm.check_fused_chains(PAPER_DENSITY, PAPER_COLOR)
+
+
+def test_paper_config_chains_are_the_paper_widths():
+    net = ingp_asdr.CONFIG.model.net
+    assert tuple(net.density_sizes()) == PAPER_DENSITY
+    assert tuple(net.color_sizes()) == PAPER_COLOR
+
+
+OVER_WIDE_COLOR = (31,) + (128,) * 7 + (3,)          # 114,688 floats of weights
+OVER_WIDE_FUSED = (PAPER_DENSITY, (31, 128, 128, 128, 128, 3))
+
+
+@pytest.mark.parametrize("chains", [(None, OVER_WIDE_COLOR), OVER_WIDE_FUSED],
+                         ids=["color", "fused"])
+def test_over_wide_chains_raise(chains):
+    dims_d, dims_c = chains
+    with pytest.raises(ValueError, match="shared memory"):
+        if dims_d is None:
+            tfm.check_color_chain(dims_c)
+        else:
+            tfm.check_fused_chains(dims_d, dims_c)
+
+
+def test_wrappers_refuse_over_wide_chains_before_launch():
+    """Off the CPU the wrappers check the chain before they build or
+    launch anything (meta tensors carry the shapes, no data)."""
+    dims_d, dims_c = OVER_WIDE_FUSED
+    n, meta = 8, torch.device("meta")
+    enc = torch.empty((n, dims_d[0]), device=meta)
+    sh = torch.empty((n, dims_c[0] - dims_d[-1] + 1), device=meta)
+    wd = torch.empty((tfm.chain_size(dims_d),), device=meta)
+    wc = torch.empty((tfm.chain_size(dims_c),), device=meta)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfm.fused_field(enc, sh, wd, dims_d, wc, dims_c)
+    cin = torch.empty((n, OVER_WIDE_COLOR[0]), device=meta)
+    w = torch.empty((tfm.chain_size(OVER_WIDE_COLOR),), device=meta)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfm.color_mlp(cin, w, OVER_WIDE_COLOR)
+
+
+def test_tile_kernels_need_hidden_widths_in_fours():
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tfm.check_color_chain((31, 126, 3))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tfm.check_fused_chains((32, 62, 16), PAPER_COLOR)
+    with pytest.raises(ValueError, match="of 8 above 64"):
+        tfm.check_color_chain((31, 100, 3))
+    tfm.check_color_chain((31, 60, 3))       # the last width may be any
+    tfm.check_color_chain((31, 96, 5))
+
+
+@pytest.mark.parametrize("paper_mlp", [False, True])
+def test_fused_field_plain_color_rounds_once_per_mac(paper_mlp):
+    """The fused plain version's rgb is the fma chain on [geo, sh]; its
+    sigma and geo are the density chain's (product and sum rounded apart)."""
+    cfg, _, field = _field(paper_mlp)
+    enc, dirs = _inputs(cfg, 50, seed=13)
+    res = tops.FusedMarchResources(field)
+    e = torch.from_numpy(enc)
+    sh = tmlp.sh_encode(torch.from_numpy(dirs), cfg.net.sh_degree)
+    packed = tfm.fused_field_plain(e, sh, *res.density, *res.color)
+    dout = tfm.chain_plain(e, *res.density)
+    cin = torch.cat([dout[:, 1:], sh], 1)
+    rgb = tfm.sigmoid_plain(tfm.chain_plain(cin, *res.color,
+                                            dense=tfm.dense_plain_fma))
+    assert torch.equal(packed[:, 1:4], rgb)
+    assert torch.equal(packed[:, 4:], dout[:, 1:])
+    assert torch.equal(packed[:, :1], tfm.trunc_exp_plain(dout[:, :1]))
