@@ -4,27 +4,32 @@ root of a checkout, on a machine with one NVIDIA H100.
 
 1. Builds the seven CUDA kernels from the five sources in
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
-   source, all started together).
+   source, all started together).  ptxas must report a 0-byte stack frame
+   and no spills for the four register-tiled kernels (density MLP, color
+   MLP, fused field, fused march), and the density and march launchers
+   must ask for the shared memory their wrappers reckon.
 2. Runs each kernel against its plain PyTorch version on the card, at the
    main path's shapes: the hash encode, density and color MLPs and the
    fused field (both chains in one kernel, also held bit for bit against
    the density -> color kernel pair) on the Phase-I probe samples of an
    800x800 frame (25,600 rays x 192), and the fused march on the frame's
    157 blocks of 4,096 rays with budgets drawn across the whole ladder
-   (plain, density-only and per-ray exit).  Tolerance rtol 1e-4 / atol
-   1e-5; the march's chunk counters exactly; the color MLP and the fused
-   field (register-tiled chains, one rounding per multiply-add in color)
-   at max abs error 0 against their fma-emulating plain versions, which
-   run in chunks of ``PLAIN_ROWS`` rows, and the color MLP once more on a
-   ragged, unaligned slice.  ptxas must report a 0-byte stack frame and no
-   spills for the two tile kernels.
+   (plain; density-only and per-ray exit, whose plain versions run on the
+   first ``PLAIN_MARCH_BLOCKS`` blocks), then once more at a ragged shape
+   (blocks of 1,000 rays, group 3, budgets below the chunk, per-ray exit).
+   The density MLP, color MLP, fused field and fused march must match
+   their plain versions at max abs error 0 (the color chains' plain
+   versions emulate fmaf; the MLPs' run in chunks of ``PLAIN_ROWS``
+   rows), the march's chunk counters with them; the color MLP also on a
+   ragged, unaligned slice.  The hash encode within rtol 1e-4 / atol 1e-5.
 3. Renders the frame end to end at the paper's config
    (``configs/ingp_asdr.py`` CONFIG): the kernel path with
    ``march_backend="fused"`` (its launch counts are read from this run),
-   the kernel field with the reference march, and the plain-torch field.
-   The count maps of the kernel and plain paths may differ in at most
-   0.1 % of pixels, and their PSNRs against the plain fixed-192 render
-   of the same view by at most 0.1 dB.
+   the kernel field with the reference march, and the plain-torch field;
+   then times the fused march alone on the frame's own blocks and budgets
+   (with and without color).  The count maps of the kernel and plain
+   paths may differ in at most 0.1 % of pixels, and their PSNRs against
+   the plain fixed-192 render of the same view by at most 0.1 dB.
 4. Renders the §4.3 decoupled frame of the same view
    (``decouple.render_decoupled`` through the kernel field, in ray
    chunks), then composites its kept samples with one ``volume_render``
@@ -85,7 +90,16 @@ DECOUPLED_RAYS_PER_CALL = 1 << 16
 PLAIN_ROWS = 1 << 20
 # The register-tiled kernels: ptxas must give each a 0-byte stack frame
 # and no spills.
-TILE_KERNELS = ("color_mlp_kernel", "fused_field_kernel")
+TILE_KERNELS = ("color_mlp_kernel", "fused_field_kernel", "density_mlp_kernel",
+                "fused_march_kernel")
+# The march variants that are not the kernel row (density-only, per-ray
+# exit) are held against the plain version on their first blocks only (the
+# kernel still runs on all): the plain color chain emulates fmaf in float64.
+PLAIN_MARCH_BLOCKS = 40
+# The ragged march: blocks of a size that is not a multiple of 32, group
+# 3, budgets below the chunk among them, per-ray exit.
+RAGGED_B, RAGGED_GROUP = 1000, 3
+RAGGED_BUDGETS = (7, 20, 31, 12, 96, 192, 5, 48, 24, 33, 65, 100)
 ATTN_SEQ = 8192
 # fp32 operations of one sample of the volume render: sigma*delta, two
 # negations and two exps, 1 - e, the weight, the running sum, acc and the
@@ -178,6 +192,66 @@ def path_launches(names, fn):
     return out, {name: counts[name] for name in names}
 
 
+def check_march_ragged(o, d, res, net, common, dev):
+    """The march once more, held bit for bit against its plain version, at
+    shapes the frame does not give it: RAGGED_B rays a block (not a
+    multiple of 32), group RAGGED_GROUP, budgets below the chunk among
+    RAGGED_BUDGETS, per-ray exit; at the frame's chunk and at the largest
+    (where a CTA holds two warp groups, not three)."""
+    import torch
+    from repro_torch.core import mlp as mlp_lib
+    from repro_torch.kernels import fused_march as FMA
+
+    nb, B = len(RAGGED_BUDGETS), RAGGED_B
+    oo, dd = o[:nb * B].contiguous(), d[:nb * B].contiguous()
+    sh = mlp_lib.sh_encode(dd, net.sh_degree).contiguous()
+    budgets = torch.tensor(RAGGED_BUDGETS, dtype=torch.int32, device=dev)
+    wd, dims_d = res.density
+    wc, dims_c = res.color
+    args = (oo, dd, sh, budgets, res.meta, res.tables, wd, dims_d, wc, dims_c)
+    for chunk in (common["chunk"], FMA.MAX_CHUNK):
+        kw = dict(common, block_size=B, chunk=chunk, group=RAGGED_GROUP,
+                  with_color=True, per_ray_exit=True)
+        out = FMA.fused_march(*args, **kw)
+        err, _ = max_err(out, FMA.fused_march_plain(*args, **kw))
+        groups = FMA.warp_groups(dims_d, dims_c, sh.shape[1], chunk,
+                                 res.tables.shape[0])
+        print(f"[kernel] fused_march on {nb} blocks of {B} rays, group "
+              f"{RAGGED_GROUP}, chunk {chunk} ({groups} warp groups a CTA), "
+              f"budgets {list(RAGGED_BUDGETS)}, per-ray exit: "
+              f"max_abs_err={err:.3e}; block chunks "
+              f"{out.reshape(nb, B, 8)[:, 0, 5].int().tolist()}", flush=True)
+        if err != 0.0:
+            raise AssertionError("fused_march differs from its plain version "
+                                 f"at the ragged shape, chunk {chunk}")
+
+
+def check_smem(bundle):
+    """The shared memory the density and march launchers ask for at
+    ``bundle``'s widths equals the wrappers' reckoning (which they check
+    against SMEM_LIMIT before a launch)."""
+    from repro_torch.kernels import fused_march as FMA
+    from repro_torch.kernels import fused_mlp as FM
+
+    net, acfg = bundle.model.net, bundle.asdr
+    dims_d, dims_c = tuple(net.density_sizes()), tuple(net.color_sizes())
+    L = bundle.model.grid.n_levels
+    pairs = [("density_mlp", FM.density_launch_smem(dims_d),
+              FM.density_smem_bytes(dims_d))]
+    for S, chunk in ((net.sh_dim, acfg.chunk), (0, acfg.chunk),
+                     (net.sh_dim, FMA.MAX_CHUNK)):
+        pairs.append((f"fused_march S={S} chunk {chunk}",
+                      FMA.launch_smem(dims_d, dims_c, S, chunk, L),
+                      FMA.smem_bytes(dims_d, dims_c, S, chunk, L)))
+    for name, got, want in pairs:
+        print(f"[build] {name}: the launcher asks for {got} B of shared "
+              f"memory, the wrapper reckons {want} B (limit "
+              f"{FM.SMEM_LIMIT} B)", flush=True)
+        if got != want or got > FM.SMEM_LIMIT:
+            raise AssertionError(f"{name}: shared memory {got} B, reckoned "
+                                 f"{want} B")
+
+
 def check_kernels(field, bundle, cam, dev, reps=3):
     """Each kernel against its plain version at the main path's shapes.
     Returns the kernel rows of the JSON line (launches filled in later)
@@ -238,7 +312,7 @@ def check_kernels(field, bundle, cam, dev, reps=3):
     row("density_mlp", "fused_mlp.cu", "src/repro/kernels/fused_mlp.py:131",
         dout, dout_p, ms, plain_ms, flop=n * fl_d["density_flops"],
         nbytes=4 * (enc.numel() + dout.numel() + wd.numel()),
-        library_ms=lib_ms)
+        library_ms=lib_ms, exact=True)
     del dout_p
 
     # ---- color MLP on the same rows: [geo, SH(dir)]
@@ -330,22 +404,26 @@ def check_kernels(field, bundle, cam, dev, reps=3):
                 (" per_ray_early_exit", dict(with_color=True, per_ray_exit=True))]
     for tag, kw in variants:
         shv = sh if kw["with_color"] else None
+        # the plain version on every block in the kernel row, on the first
+        # PLAIN_MARCH_BLOCKS in the other two
+        nbp = nb if not tag else min(nb, PLAIN_MARCH_BLOCKS)
 
         def kern():
             return FMA.fused_march(*args, shv, budgets, meta, tables, wd,
                                    dims_d, wc, dims_c, **common, **kw)
 
         def plain():
-            return FMA.fused_march_plain(*args, shv, budgets, meta, tables,
-                                         wd, dims_d, wc, dims_c, **common,
-                                         **kw)
+            return FMA.fused_march_plain(
+                *(a[:nbp * B] for a in args),
+                shv[:nbp * B] if shv is not None else None, budgets[:nbp],
+                meta, tables, wd, dims_d, wc, dims_c, **common, **kw)
 
-        out, ms = timed(kern, dev, reps if not tag else 1)
+        out, ms = timed(kern, dev, reps)
         out_p, plain_ms = timed(plain, dev, 1)
-        exact_c = torch.equal(out[:, 5:7], out_p[:, 5:7])
-        print(f"[kernel] fused_march{tag}: counters exact={exact_c}; "
-              f"block chunks {out.reshape(nb, B, 8)[:, 0, 5].int().tolist()}",
-              flush=True)
+        exact_c = torch.equal(out[:nbp * B, 5:7], out_p[:, 5:7])
+        print(f"[kernel] fused_march{tag}: counters exact={exact_c} (plain on "
+              f"{nbp} of {nb} blocks); block chunks "
+              f"{out.reshape(nb, B, 8)[:, 0, 5].int().tolist()}", flush=True)
         if not exact_c:
             raise AssertionError(f"fused_march{tag}: chunk counters differ "
                                  "from the plain version")
@@ -367,13 +445,18 @@ def check_kernels(field, bundle, cam, dev, reps=3):
         nbytes = 4 * (2 * args[0].numel() + budgets.numel() + tables.numel()
                       + wd.numel() + wc.numel() + out.numel()
                       + (sh.numel() if kw["with_color"] else 0))
+        work = f"{samples} samples" + (f", {anchors} anchors with color"
+                                       if kw["with_color"] else "")
+        print(f"[kernel] fused_march{tag}: {work}", flush=True)
         if tag:
-            check(f"fused_march{tag}", out, out_p, ms, plain_ms, flop, nbytes)
+            check(f"fused_march{tag}", out[:nbp * B], out_p, ms, plain_ms,
+                  flop, nbytes, exact=True)
         else:
             row("fused_march", "fused_march.cu",
                 "src/repro/kernels/fused_march.py:329", out, out_p, ms,
-                plain_ms, flop, nbytes)
+                plain_ms, flop, nbytes, exact=True)
         del out, out_p
+    check_march_ragged(o, d, res, net, common, dev)
     return rows, ff_launches
 
 
@@ -393,6 +476,46 @@ def render_frame(fns, acfg, cam, dev):
     img, st = pipeline.render_asdr_image(fns, acfg, cam, device=dev)
     sync(dev)
     return img, st, 1e3 * (time.perf_counter() - t0)
+
+
+def frame_blocks(fns, acfg, cam, dev):
+    """The blocks render_asdr_image marches in Phase II: Phase I's counts,
+    padded and sorted into blocks by budget.  Returns (o, d, budgets)."""
+    from repro_torch.core import pipeline, scene
+    o, d = scene.camera_rays(cam, device=dev)
+    probe = pipeline.probe_phase(fns, acfg, cam,
+                                 return_opacity=acfg.sort_by_opacity,
+                                 device=dev)
+    opacity = probe[2] if acfg.sort_by_opacity else None
+    o, d, counts, opacity, _ = pipeline.pad_rays_to_blocks(acfg, o, d,
+                                                           probe[0], opacity)
+    order, budgets = pipeline.block_sort(acfg, counts, opacity)
+    B = acfg.block_size
+    return o[order].reshape(-1, B, 3), d[order].reshape(-1, B, 3), budgets
+
+
+def time_frame_march(fns, acfg, cam, stats, dev, reps=3):
+    """The fused march alone on the frame's own blocks and budgets, with
+    and without color; its chunk counts must be the frame's."""
+    import torch
+    from repro_torch.kernels import ops
+
+    o_s, d_s, budgets = frame_blocks(fns, acfg, cam, dev)
+
+    def march(density_only):
+        return ops.fused_march_blocks(fns.fused, acfg, o_s, d_s, budgets,
+                                      density_only=density_only)
+
+    out, ms = timed(lambda: march(False), dev, reps)
+    _, ms_density = timed(lambda: march(True), dev, reps)
+    same = (torch.equal(budgets, stats["budgets"])
+            and torch.equal(out[3], stats["chunks_per_block"]))
+    print(f"[frame] fused march alone on the frame's {budgets.shape[0]} "
+          f"blocks (budgets from Phase I): {ms:.3f} ms, density only "
+          f"{ms_density:.3f} ms; budgets and chunks as in the frame: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the frame's march, run alone, ran other chunks")
 
 
 def fixed_reference(fns, cam, ns, dev, rays_per_call=1 << 15):
@@ -435,6 +558,7 @@ def run_frames(field, bundle, cam, dev):
           f"of which Phase I alone {ms_probe:.1f} ms; kernel field, "
           f"reference march: {ms_r:.1f} ms; plain field, reference march: "
           f"{ms_p:.1f} ms", flush=True)
+    time_frame_march(fns_k, fused, cam, st_k, dev)
 
     counts = st_k["counts"]
     vals, nums = torch.unique(counts, return_counts=True)
@@ -676,6 +800,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     bundle = ingp_asdr.CONFIG
+    check_smem(bundle)
     rows = run(dev, bundle, bundle.image_hw, gemma2_27b.CONFIG, ATTN_SEQ)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(

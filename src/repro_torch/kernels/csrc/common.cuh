@@ -1,6 +1,8 @@
 // Device functions shared by the hash-encode, MLP and fused-march kernels,
-// so Phase I and Phase II run one implementation of the encode and of a
-// dense layer and cannot drift apart.
+// so Phase I and Phase II run one implementation of the encode and of the
+// register-tiled MLP chain and cannot drift apart: the encode, the tile
+// chain with its shared-memory plan (TileLayout), the persistent tile loop
+// of the one-pass MLP kernels and the density chain's epilogue.
 //
 // Numerics: every kernel is built with --fmad=false, so a*b+c rounds the
 // product and the sum separately, exactly as the plain PyTorch versions
@@ -15,7 +17,6 @@
 namespace asdr {
 
 constexpr int kMaxFeat = 8;      // feature_dim F per level
-constexpr int kMaxWidth = 128;   // widest MLP layer (input or output)
 constexpr int kMaxLayers = 8;    // layers per MLP chain
 constexpr int kMaxLevels = 32;   // hash-grid levels
 
@@ -25,6 +26,14 @@ struct Dims {
   int d[kMaxLayers + 1];
 };
 
+// A chain's widths from a host array of n_layers + 1 of them.
+inline Dims dims_of(const int* dims, int n_layers) {
+  Dims D{};
+  D.n = n_layers;
+  for (int i = 0; i <= n_layers; ++i) D.d[i] = dims[i];
+  return D;
+}
+
 // Weights of a chain as stored flat: layer i is a row-major
 // (d[i], d[i+1]) matrix right after layer i-1.
 __host__ __device__ inline int chain_floats(const Dims& D) {
@@ -33,67 +42,64 @@ __host__ __device__ inline int chain_floats(const Dims& D) {
   return s;
 }
 
-// One level's trilinear encode of one point: out[f], f < F.
+// One level's trilinear encode of one point: out[f * stride], f < F.
 // Dense levels address row-major with stride res+1; hashed levels use
-// Instant-NGP's XOR-of-primes hash in wrapping uint32, mod ``rows``.
+// Instant-NGP's XOR-of-primes hash in wrapping uint32, mod ``rows`` (a
+// mask where rows is a power of two: the same index, fewer instructions).
+// The eight corners' rows are gathered together (F = 2 as one float2 per
+// corner), then each feature sums its corners in order c = 0 .. 7 from 0.
 __device__ __forceinline__ void encode_point_level(
     float px, float py, float pz, int res, int dense, uint32_t rows,
-    const float* __restrict__ table, int F, float* out) {
+    const float* __restrict__ table, int F, float* __restrict__ out,
+    int stride = 1) {
   const float fres = (float)res;
   const float sx = px * fres, sy = py * fres, sz = pz * fres;
   const int bx = min(max((int)floorf(sx), 0), res - 1);
   const int by = min(max((int)floorf(sy), 0), res - 1);
   const int bz = min(max((int)floorf(sz), 0), res - 1);
   const float fx = sx - (float)bx, fy = sy - (float)by, fz = sz - (float)bz;
-  for (int f = 0; f < F; ++f) out[f] = 0.f;
+  const bool pow2 = (rows & (rows - 1)) == 0;
+  uint32_t idx[8];
+  float w[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int ox = (c >> 2) & 1, oy = (c >> 1) & 1, oz = c & 1;
     const uint32_t cx = (uint32_t)(bx + ox), cy = (uint32_t)(by + oy),
                    cz = (uint32_t)(bz + oz);
-    uint32_t idx;
     if (dense) {
       const uint32_t s = (uint32_t)(res + 1);
-      idx = cx + s * (cy + s * cz);
+      idx[c] = cx + s * (cy + s * cz);
     } else {
       const uint32_t h = (cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u);
-      idx = h % rows;
+      idx[c] = pow2 ? (h & (rows - 1)) : h % rows;
     }
     const float wx = ox ? fx : 1.f - fx;
     const float wy = oy ? fy : 1.f - fy;
     const float wz = oz ? fz : 1.f - fz;
-    const float w = wx * wy * wz;
-    const float* row = table + (size_t)idx * F;
-    for (int f = 0; f < F; ++f) out[f] = out[f] + __ldg(row + f) * w;
+    w[c] = wx * wy * wz;
   }
-}
-
-// y = x @ W for one sample, W a row-major (n_in, n_out) matrix (in shared
-// memory); the sum over k runs in order from k = 0.
-__device__ __forceinline__ void dense_layer(const float* __restrict__ W,
-                                            int n_in, int n_out,
-                                            const float* x, float* y,
-                                            bool relu) {
-  for (int j = 0; j < n_out; ++j) {
+  if (F == 2 && ((uintptr_t)table & 7) == 0) {
+    float2 v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      v[c] = __ldg(reinterpret_cast<const float2*>(table) + idx[c]);
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      a0 = a0 + v[c].x * w[c];
+      a1 = a1 + v[c].y * w[c];
+    }
+    out[0] = a0;
+    out[stride] = a1;
+    return;
+  }
+  for (int f = 0; f < F; ++f) {
     float acc = 0.f;
-    for (int k = 0; k < n_in; ++k) acc = acc + x[k] * W[k * n_out + j];
-    y[j] = relu ? fmaxf(acc, 0.f) : acc;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      acc = acc + __ldg(table + (size_t)idx[c] * F + f) * w[c];
+    out[f * stride] = acc;
   }
-}
-
-// The whole chain, ReLU between layers and none after the last.  Input in
-// a; returns the buffer (a or b) that holds the output.
-__device__ __forceinline__ float* mlp_chain(const float* __restrict__ W,
-                                            const Dims& D, float* a,
-                                            float* b) {
-  float* x = a;
-  float* y = b;
-  for (int i = 0; i < D.n; ++i) {
-    dense_layer(W, D.d[i], D.d[i + 1], x, y, i < D.n - 1);
-    W += D.d[i] * D.d[i + 1];
-    float* t = x; x = y; y = t;
-  }
-  return x;
 }
 
 __device__ __forceinline__ float trunc_exp(float x) {
@@ -138,8 +144,8 @@ __device__ __forceinline__ void group_sync() {
                : "memory");
 }
 
-// acc + x*w with the product and the sum rounded on their own (the
-// arithmetic of dense_layer under --fmad=false; nvcc never contracts it).
+// acc + x*w with the product and the sum rounded on their own (what
+// a*b+c means under --fmad=false; nvcc never contracts it).
 struct MulAdd {
   static __device__ __forceinline__ float step(float acc, float x, float w) {
     return __fadd_rn(acc, __fmul_rn(x, w));
@@ -309,6 +315,171 @@ __device__ __forceinline__ void tile_load_async(float* s, const float* x,
     cp_async16(s + 4 * i, g + 4 * i);
   for (int i = 4 * n16 + group_tid(); i < nf; i += kGroupThreads)
     cp_async4(s + i, g + i);
+}
+
+// ---- Shared-memory plans and the chain over a tile ---------------------
+
+// Where a tile kernel's pieces sit in dynamic shared memory, in floats,
+// worked out on the host from the widths, so the kernels index no Dims at
+// run time: chain 0's weights (the color chain, the density chain, or the
+// two-chain kernels' density chain) at 0, chain 1's (their color chain) at
+// w1, each of the CTA's ``groups`` warp groups' k-major activations at act
+// + g * act_g, and from raw + g * raw_g the group's other buffers: two
+// input tiles of ``tile`` floats each (one filling while the other
+// computes), then ``extra`` floats of the kernel's own.
+struct TileLayout {
+  int nw0, nw1;        // weights of chain 0 and chain 1 (0 for one chain)
+  int w1, act, raw;    // offsets (each a multiple of 4 floats)
+  int groups;          // warp groups of a CTA
+  int act_g;           // floats of one group's activations
+  int tile;            // floats of one input tile
+  int extra;           // floats of the kernel's own, after the two tiles
+  int raw_g;           // floats of one group's buffers from raw
+  int P;               // act row of the color input (two chains)
+  size_t bytes;
+};
+
+// Rows of k-major activations a chain needs: its widest layer input.
+inline int act_rows(const Dims& D) {
+  int m = 0;
+  for (int i = 0; i < D.n; ++i) m = D.d[i] > m ? D.d[i] : m;
+  return m;
+}
+
+inline void finish_layout(TileLayout& L, int rows, int in_floats, int extra,
+                          int groups) {
+  L.groups = groups;
+  L.act_g = rows * kTileRows;
+  L.raw = L.act + groups * L.act_g;
+  L.tile = kTileRows * in_floats;
+  L.extra = pad4(extra);
+  L.raw_g = 2 * L.tile + L.extra;
+  L.bytes = sizeof(float) * ((size_t)L.raw + groups * (size_t)L.raw_g);
+}
+
+// One chain: weights, act rows of its widest input, tiles of d[0] floats.
+inline TileLayout chain_layout(const Dims& D, int extra) {
+  TileLayout L{};
+  L.nw0 = chain_floats(D);
+  L.act = pad4(L.nw0);
+  finish_layout(L, act_rows(D), D.d[0], extra, kTileGroups);
+  return L;
+}
+
+// color_mlp: the chain alone.
+inline TileLayout color_layout(const Dims& D) { return chain_layout(D, 0); }
+
+// density_mlp: the chain and a staging tile of kTileRows output rows of
+// d[n] + 1 floats (one of padding, so a column's stores spread over the
+// banks), written out as contiguous float4s.
+inline TileLayout density_layout(const Dims& D) {
+  return chain_layout(D, kTileRows * (D.d[D.n] + 1));
+}
+
+// Two chains (fused field, fused march): the color input [geo, sh] sits in
+// act rows [P, P + G + S), P the density chain's widest input, clear of
+// every density layer's rows; input tiles of in_floats floats a row.
+inline TileLayout two_chain_layout(const Dims& Dd, const Dims& Dc,
+                                   int in_floats, int extra,
+                                   int groups = kTileGroups) {
+  TileLayout L{};
+  L.nw0 = chain_floats(Dd);
+  L.nw1 = chain_floats(Dc);
+  L.w1 = pad4(L.nw0);
+  L.act = L.w1 + pad4(L.nw1);
+  L.P = act_rows(Dd);
+  const int rc = act_rows(Dc);
+  finish_layout(L, L.P + Dc.d[0] > rc ? L.P + Dc.d[0] : rc, in_floats, extra,
+                groups);
+  return L;
+}
+
+// fused_field: input tiles of enc rows, then sh rows.
+inline TileLayout fused_layout(const Dims& Dd, const Dims& Dc, int S) {
+  return two_chain_layout(Dd, Dc, Dd.d[0] + S, 0);
+}
+
+// A chain's widths into shared memory (thread 0, compile-time indices).
+__device__ __forceinline__ void dims_to_shared(const Dims& D, int* s) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i <= kMaxLayers; ++i) s[i] = D.d[i];
+  }
+}
+
+// The hidden layers of a chain on one tile, then its last layer into epi.
+// dims: the chain's widths in shared memory; x: its k-major input.
+template <class Mac, class Epi>
+__device__ __forceinline__ void tile_chain(const float* W, const int* dims,
+                                           int n_layers, const float* x,
+                                           float* act, Epi epi) {
+  for (int l = 0; l < n_layers - 1; ++l) {
+    tile_dense_relu<Mac>(W, dims[l], dims[l + 1], x, act);
+    W += dims[l] * dims[l + 1];
+    x = act;
+  }
+  tile_dense_last<Mac>(W, dims[n_layers - 1], dims[n_layers], x, epi);
+}
+
+// The density chain's last layer: column 0 is the sigma logit, handed on
+// as sigma(row, trunc_exp(logit)); columns 1.. are geo, geo(row, g, y).
+template <class Sigma, class Geo>
+__device__ __forceinline__ auto density_epi(Sigma sigma, Geo geo) {
+  return [=](int r, int c, float y) {
+    if (c == 0)
+      sigma(r, trunc_exp(y));
+    else
+      geo(r, c - 1, y);
+  };
+}
+
+__device__ __forceinline__ int tile_rows(long long n, long long tile) {
+  return (int)min((long long)kTileRows, n - tile * kTileRows);
+}
+
+// The persistent loop of the one-pass tile kernels.  The calling group
+// walks over tiles blockIdx.x * kTileGroups + g, then gridDim.x *
+// kTileGroups further on, of kTileRows of the n rows.  load(buf, tile)
+// starts the cp.async copies of a tile's inputs into buf; body(cur, row0,
+// nrows) computes the tile whose inputs sit in cur (the group synced)
+// while the next tile's copies fill the other buffer.  body must sync the
+// group once it has read cur.
+template <class Load, class Body>
+__device__ __forceinline__ void tile_loop(long long n, float* raw0,
+                                          float* raw1, Load load, Body body) {
+  const long long ntiles = (n + kTileRows - 1) / kTileRows;
+  const long long stride = (long long)gridDim.x * kTileGroups;
+  long long tile = (long long)blockIdx.x * kTileGroups +
+                   threadIdx.x / kGroupThreads;
+  if (tile < ntiles) load(raw0, tile);
+  cp_async_commit();
+  for (int it = 0; tile < ntiles; ++it, tile += stride) {
+    const long long next = tile + stride;
+    if (next < ntiles) load((it & 1) ? raw0 : raw1, next);
+    cp_async_commit();
+    cp_async_wait<1>();
+    group_sync();
+    body((it & 1) ? raw1 : raw0, tile * kTileRows, tile_rows(n, tile));
+  }
+  cp_async_wait<0>();
+}
+
+// Rows [row0, row0 + nrows) of out (n, W) from stage (row r at r * (W + 1))
+// by the calling group: the rows are contiguous in out, so they go as
+// float4s (row0 * W floats in, a multiple of 4) and a scalar tail.
+__device__ __forceinline__ void store_tile(const float* stage, int W,
+                                           float* out, long long row0,
+                                           int nrows) {
+  float* g = out + row0 * W;
+  const int nf = nrows * W, n4 = nf >> 2;
+  auto at = [&](int e) {
+    const int r = e / W;
+    return stage[e + r];
+  };
+  for (int i = group_tid(); i < n4; i += kGroupThreads)
+    *reinterpret_cast<float4*>(g + 4 * i) =
+        make_float4(at(4 * i), at(4 * i + 1), at(4 * i + 2), at(4 * i + 3));
+  for (int e = 4 * n4 + group_tid(); e < nf; e += kGroupThreads) g[e] = at(e);
 }
 
 // Blocks of ``threads`` to fill the card once with a grid-stride loop.

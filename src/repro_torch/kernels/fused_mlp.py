@@ -4,16 +4,15 @@ Replaces the TPU kernels ``repro/kernels/fused_mlp.py`` ``density_call``
 (``_density_kernel``), ``color_call`` (``_color_kernel``) and
 ``fused_field_call`` (``_fused_kernel``: both chains in one pass, packed
 ``[sigma, rgb, geo]``).  The CUDA kernels are in ``csrc/fused_mlp.cu``,
-built by ``_build.py`` with nvcc for sm_90a.  The density kernel copies
-its chain's weights into shared memory once per CTA and carries one
-sample per thread through it.  The color and fused-field kernels are
+built by ``_build.py`` with nvcc for sm_90a.  All three are
 register-tiled chains: one persistent CTA per SM holds the weights in
 shared memory and walks over tiles of samples, ``TILE_ROWS`` in flight,
 whose activations sit k-major beside the weights; each thread keeps a
-small tile of a layer's outputs in registers (``color_smem_bytes`` /
-``fused_smem_bytes``).  Bound on the
-H100: operations (fp32 on the CUDA cores; 74,240 FLOP per color sample at
-the paper's widths).
+small tile of a layer's outputs in registers (``density_smem_bytes`` /
+``color_smem_bytes`` / ``fused_smem_bytes``).  The density kernel stages
+each tile's output rows in shared memory and writes them out contiguous.
+Bound on the H100: operations (fp32 on the CUDA cores; 74,240 FLOP per
+color sample at the paper's widths).
 
 Weights keep their true widths: a chain is packed flat, layer after layer,
 each a row-major (fan_in, fan_out) matrix, with its widths beside it
@@ -40,7 +39,7 @@ from . import _build
 MAX_WIDTH = 128
 MAX_LAYERS = 8
 SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use (H100)
-TILE_ROWS = 64               # samples in flight per CTA (color / fused)
+TILE_ROWS = 64               # samples in flight per CTA (the MLP kernels)
 
 
 def pack_chain(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -200,17 +199,14 @@ def fused_field_plain(enc, sh, wd, dims_d, wc, dims_c):
     return torch.cat([dout[:, :1], rgb, dout[:, 1:]], dim=1)
 
 
-def check_dims(dims) -> None:
+def check_tile_dims(dims) -> None:
+    """Raise unless the tile kernels take a chain of widths ``dims``: at
+    most ``MAX_LAYERS`` layers of width <= ``MAX_WIDTH``, hidden widths
+    multiples of 4 (a thread's 4 columns of weights are one float4), and
+    of 8 above 64 (8 columns a thread)."""
     if len(dims) - 1 > MAX_LAYERS or max(dims) > MAX_WIDTH:
         raise ValueError(f"MLP widths {dims}: the kernels take at most "
                          f"{MAX_LAYERS} layers of width <= {MAX_WIDTH}")
-
-
-def check_tile_dims(dims) -> None:
-    """The tile kernels also need hidden widths that are multiples of 4
-    (a thread's 4 columns of weights are one float4), and of 8 above 64
-    (8 columns a thread)."""
-    check_dims(dims)
     if any(d % (8 if d > 64 else 4) for d in dims[1:-1]):
         raise ValueError(f"MLP widths {dims}: the tile kernels take hidden "
                          f"widths that are multiples of 4 (of 8 above 64)")
@@ -228,32 +224,52 @@ def color_smem_bytes(dims, rows: int = TILE_ROWS) -> int:
                 + 2 * rows * dims[0])
 
 
-def fused_smem_bytes(dims_d, dims_c, rows: int = TILE_ROWS) -> int:
-    """Dynamic shared memory of the fused-field kernel: both chains'
-    weights, the activations (the color input sits past the density
-    chain's widest input) and two input tiles of enc and sh rows."""
+def density_smem_bytes(dims, rows: int = TILE_ROWS) -> int:
+    """Dynamic shared memory of the density kernel: the color kernel's
+    plan for its chain, and a staging tile of output rows (each one float
+    wider, so a column's stores spread over the banks)."""
+    return color_smem_bytes(dims, rows) + 4 * rows * (dims[-1] + 1)
+
+
+def two_chain_floats(dims_d, dims_c, rows: int = TILE_ROWS) -> int:
+    """Floats of both chains' weights and of the k-major activations of the
+    two-chain kernels (fused field, fused march): the color input sits
+    past the density chain's widest input."""
     p = max(dims_d[:-1])
     act = max(p + dims_c[0], max(dims_c[:-1]))
+    return (_pad4(chain_size(dims_d)) + _pad4(chain_size(dims_c))
+            + rows * act)
+
+
+def fused_smem_bytes(dims_d, dims_c, rows: int = TILE_ROWS) -> int:
+    """Dynamic shared memory of the fused-field kernel: both chains'
+    weights, the activations and two input tiles of enc and sh rows."""
     S = dims_c[0] - (dims_d[-1] - 1)
-    return 4 * (_pad4(chain_size(dims_d)) + _pad4(chain_size(dims_c))
-                + rows * act + 2 * rows * (dims_d[0] + S))
+    return 4 * (two_chain_floats(dims_d, dims_c, rows)
+                + 2 * rows * (dims_d[0] + S))
 
 
 def check_color_chain(dims) -> None:
     """Raise unless the color kernel takes a chain of widths ``dims``."""
     check_tile_dims(dims)
-    _check_smem("color_mlp", color_smem_bytes(dims), dims)
+    check_smem("color_mlp", color_smem_bytes(dims), dims)
+
+
+def check_density_chain(dims) -> None:
+    """Raise unless the density kernel takes a chain of widths ``dims``."""
+    check_tile_dims(dims)
+    check_smem("density_mlp", density_smem_bytes(dims), dims)
 
 
 def check_fused_chains(dims_d, dims_c) -> None:
     """Raise unless the fused-field kernel takes these two chains."""
     check_tile_dims(dims_d)
     check_tile_dims(dims_c)
-    _check_smem("fused_field", fused_smem_bytes(dims_d, dims_c),
-                (dims_d, dims_c))
+    check_smem("fused_field", fused_smem_bytes(dims_d, dims_c),
+               (dims_d, dims_c))
 
 
-def _check_smem(name, smem, dims):
+def check_smem(name, smem, dims):
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: widths {dims} need {smem} B of shared "
                          f"memory (> {SMEM_LIMIT})")
@@ -294,12 +310,21 @@ def _launch(name, x, flat, dims, check):
     return out
 
 
+def density_launch_smem(dims) -> int:
+    """Bytes of shared memory the density kernel's launcher asks for (the
+    compiled library's own reckoning; builds it)."""
+    fn = _build.library("fused_mlp").density_mlp_smem
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1))
+
+
 def density_mlp(enc, flat, dims):
     """enc (N, d0) -> (N, 1+G) packed [sigma, geo]; sigma = trunc_exp of
     the logit in column 0.  CUDA tensors launch the kernel."""
     if enc.device.type == "cpu":
         return density_mlp_plain(enc, flat, dims)
-    out = _launch("density_mlp", enc, flat, dims, check_dims)
+    out = _launch("density_mlp", enc, flat, dims, check_density_chain)
     density_mlp.launches += 1
     return out
 

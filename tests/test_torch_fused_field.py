@@ -96,6 +96,31 @@ def test_tile_kernels_shared_memory_at_the_paper_widths():
     tfm.check_fused_chains(PAPER_DENSITY, PAPER_COLOR)
 
 
+def test_density_kernel_shared_memory_at_the_paper_widths():
+    """Weights 12,288 B, the k-major activations of a 64-row tile 16,384 B,
+    two input tiles 16,384 B and the staging tile of 64 output rows of 17
+    floats 4,352 B."""
+    assert tfm.density_smem_bytes(PAPER_DENSITY) == 49_408
+    assert 12_288 + 16_384 + 16_384 + 4_352 == 49_408
+    tfm.check_density_chain(PAPER_DENSITY)
+
+
+OVER_WIDE_DENSITY = (32,) + (128,) * 7 + (16,)       # 104,448 floats
+
+
+@pytest.mark.parametrize("dims, match", [
+    ((32, 62, 16), "multiples of 4"), ((32, 100, 16), "of 8 above 64"),
+    (OVER_WIDE_DENSITY, "shared memory")], ids=["fours", "eights", "wide"])
+def test_density_mlp_refuses_before_launch(dims, match):
+    """Off the CPU the density wrapper checks the chain before it builds
+    or launches anything."""
+    meta = torch.device("meta")
+    enc = torch.empty((8, dims[0]), device=meta)
+    w = torch.empty((tfm.chain_size(dims),), device=meta)
+    with pytest.raises(ValueError, match=match):
+        tfm.density_mlp(enc, w, dims)
+
+
 def test_paper_config_chains_are_the_paper_widths():
     net = ingp_asdr.CONFIG.model.net
     assert tuple(net.density_sizes()) == PAPER_DENSITY
