@@ -1,202 +1,665 @@
-// Causal GQA flash attention for Hopper (sm_90a), fp32 math on the CUDA
-// cores, fp32 or bf16 in and out.
+// Causal GQA flash attention for Hopper (sm_90a): bf16 on the tensor
+// cores, fp32 on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // flash_attention (_flash_kernel): scores q.k * Dh^-0.5, an optional tanh
-// softcap, the causal mask and an optional sliding window, softmax, then
-// the weighted sum of v.  The TPU kernel repeats K/V per GQA group and
-// keeps one head's K/V resident while it sweeps 128 x 128 tiles.  Here one
-// CTA takes (batch*head, 64 query rows): four threads share a query row,
-// each holding a quarter of q and of the output in registers (float4
-// slices interleaved, so shared-memory reads do not conflict); 32-key
-// tiles of K and V pass through shared memory; the online softmax runs on
-// the CUDA cores.  The KV head is h / (H / KV), read in place.  Key tiles
-// that the causal or window mask empties for every row of the CTA are
-// skipped; masked scores get a weight of exactly 0, so a row whose first
-// tiles are all masked carries no state from them.
+// softcap, the causal mask and an optional sliding window, an online
+// softmax with fp32 statistics (m, l), then the weighted sum of v, out in
+// q's dtype.  The TPU kernel repeats K/V per GQA group and keeps one
+// head's K/V resident while it sweeps 128 x 128 tiles.  Here the KV head
+// h / (H / KV) is read in place, key tiles that the causal or window mask
+// empties for every row of a CTA are never loaded, and masked scores get
+// a weight of exactly 0 (exp of -inf), so a row whose first tiles are all
+// masked carries nothing from them.  One CTA takes (batch*head, a tile of
+// query rows); K and V tiles pass through shared memory by cp.async,
+// double-buffered, so tile k + 1 loads while tile k is computed (one
+// barrier a tile: tile k has landed and the other buffer is free).
 //
-// Bound: operations (4 * Dh FLOP per unmasked (query, key) pair against
-// 4 * Dh * (2 + 2 * KV / H) bytes per query row).  Built without
-// --fmad=false: the kernel is held to its plain version by tolerance.
+// bf16 (flash_attention_bf16_kernel), FA2-style: each warp owns 16 query
+// rows, a CTA kBf16Warps of them (8: 128 rows, one CTA an SM at 234
+// registers; 4 warps at two CTAs an SM timed within noise of it, at
+// three CTAs they spill).
+// Q.K^T is mma.sync m16n8k16 bf16 -> fp32 with Q's fragments held in
+// registers (Q's tile is staged in the second K/V buffer, which it leaves
+// before that buffer first fills); K tiles come in by ldmatrix, V by
+// ldmatrix.trans, each step's fragments loading while the last one
+// multiplies.  The online softmax runs on the fp32 accumulator fragments
+// (a quad of lanes shares a row: two shuffles for its max, which is taken
+// before the log2 scale, folded into the exponent's multiply-add; the
+// row sum stays per lane until the end; O is rescaled only when a row's
+// max moved).  P is rounded to bf16 in registers and used directly as
+// the A operand of P.V, never through shared memory; the TPU kernel's MXU
+// passes round bf16 operands the same way, and the plain version rounds
+// P so too.  Rows of shared memory are padded by 16 B, so ldmatrix's
+// eight rows fall on distinct banks.  Bound: the tensor cores (4 * Dh
+// FLOP per unmasked pair at 989 TFLOP/s), then the exps (and the
+// softcap's tanhf: an exp2 and a reciprocal) on the special-function
+// units.
+//
+// fp32 (flash_attention_f32_kernel) stays in full fp32 on the CUDA cores
+// (no TF32), as a register-tiled outer product: a CTA of 128 threads takes
+// 64 query rows against kF32KB-key tiles (32: two CTAs an SM; 16 and 64
+// measured slower); each thread holds a 4 x 4 tile of S = Q.K^T (rows
+// ty + 16 r, keys tx + 8 c) and a 4 x 16 tile of O (rows ty + 16 r, float4
+// slices tx + 8 c of Dh), so each float4 read from shared memory feeds
+// several multiply-adds.  P goes through a small shared tile read back by
+// the warp that wrote it.  Bound: operations (4 * Dh FLOP per unmasked
+// pair at 67 TFLOP/s).
+//
+// Built without --fmad=false: the kernel is held to its plain version by
+// tolerance, not to the bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kQB = 64;                      // query rows per CTA
-constexpr int kKB = 32;                      // keys per shared-memory tile
-constexpr int kTPR = 4;                      // threads per query row
-constexpr int kThreads = kQB * kTPR;
+typedef __nv_bfloat16 bf16;
+
 constexpr int kMaxDh = 128;
-constexpr int kMaxV = kMaxDh / (4 * kTPR);   // float4 slices per thread
-constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+constexpr int kBf16Warps = 8;                // warps (16 query rows each)
+constexpr int kBf16MinCtas = 1;              // CTAs an SM it is built for
+constexpr int kBf16Threads = 32 * kBf16Warps;
+constexpr int kBf16QB = 16 * kBf16Warps;     // query rows per CTA
+constexpr int kBf16KB = 64;                  // keys per tile
+
+constexpr int kF32Threads = 128;
+constexpr int kF32MinCtas = 2;               // CTAs an SM it is built for
+constexpr int kF32QB = 64;                   // query rows per CTA
+constexpr int kF32KB = 32;                   // keys per tile
+constexpr int kF32KC = kF32KB / 8;           // keys of a thread's S tile
+constexpr int kF32LdP = kF32KB + 8;          // row of the P tile (floats)
+
+// Rows of Q, K and V in shared memory are padded by 16 B: an odd number of
+// 16-B units per row puts ldmatrix's eight rows (bf16) and eight lanes'
+// float4 reads (fp32) on distinct banks.
+__host__ __device__ inline int row_elems(int Dh, int elem_bytes) {
+  return Dh + 16 / elem_bytes;
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+// Two buffers of a K tile and a V tile; Q's tile is staged in the second
+// (it is read into registers before that buffer first fills).
+__host__ inline long long bf16_smem(int Dh) {
+  return 2LL * row_elems(Dh, 2) * 4 * kBf16KB;
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__host__ inline long long f32_smem(int Dh) {
+  return 4LL * (row_elems(Dh, 4) * (kF32QB + 4 * kF32KB) + kF32QB * kF32LdP);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+// The key tiles with an unmasked pair for query rows [q0, q0 + qb): their
+// first keys run from begin (the tile holding key q0 - window + 1, 0
+// without a window) by kb while below end (one past the rows' last key).
+// The kernels and flash_attention_key_range share it.
+struct KeyRange {
+  int begin, end;
+};
+__host__ __device__ __forceinline__ KeyRange key_range(int q0, int S,
+                                                       int window, int qb,
+                                                       int kb) {
+  const int first = q0 - window + 1;
+  return {window > 0 && first > 0 ? first / kb * kb : 0,
+          q0 + qb < S ? q0 + qb : S};
+}
+
+// ---- cp.async, ldmatrix, mma.sync ---------------------------------------
+__device__ __forceinline__ void cp16(void* s, const void* g, bool full) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(g), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// kRows rows from row0 of a (., Dh) matrix with row stride gstride into
+// shared rows of ld elements; rows at or past S are zero-filled.
+template <typename T, int kThreads, int kRows>
+__device__ __forceinline__ void load_rows(T* s, int ld, const T* g,
+                                          long long gstride, int row0, int S,
+                                          int Dh) {
+  constexpr int kPer = 16 / sizeof(T);           // elements per 16 B
+  constexpr int kSlots = kMaxDh / kPer;          // 16 B slots of a row
+  constexpr int kStep = kThreads / kSlots;       // rows a pass
+  static_assert(kRows % kStep == 0, "whole passes");
+  const int c = threadIdx.x % kSlots, r = threadIdx.x / kSlots;
+  if (c * kPer >= Dh) return;
+  const T* gp = g + (long long)(row0 + r) * gstride + c * kPer;
+  T* sp = s + r * ld + c * kPer;
+#pragma unroll
+  for (int i = 0; i < kRows / kStep; ++i) {
+    const bool ok = row0 + r + i * kStep < S;
+    cp16(sp + i * kStep * ld, ok ? gp + i * kStep * gstride : g, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// ---- bf16 on the tensor cores -------------------------------------------
+constexpr int kVP = 4;   // 16-dim pairs of 8-dim output tiles a P.V step
+
+// o += P . V for one warp's 16 rows and a tile of kBf16KB keys, P the
+// softmax numerators s (fp32, rounded to bf16 here).  Steps of 16 keys by
+// kVP * 16 dims, kHalves steps per 16 keys (Dh <= kHalves * kVP * 16);
+// the next step's V fragments (ldmatrix.trans) load while this one
+// multiplies.  bv[0] holds the first step's, loaded by the caller.
+template <int kHalves>
+__device__ __forceinline__ void pv_bf16(float (&o)[kMaxDh / 8][4],
+                                        const float (&s)[kBf16KB / 8][4],
+                                        uint32_t (&bv)[2][kVP][4],
+                                        const bf16* va, int ld, int nk) {
+  constexpr int kSteps = kBf16KB / 16 * kHalves;
+  uint32_t pa[4];
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+    const int kk = st / kHalves, d0 = (st % kHalves) * kVP;
+    const int nx = st + 1, nkk = nx / kHalves, nd0 = (nx % kHalves) * kVP;
+    if (nx < kSteps) {
+#pragma unroll
+      for (int dp = 0; dp < kVP; ++dp)
+        if (nd0 + dp < nk)
+          ldsm_x4_t(bv[nx & 1][dp], va + nkk * 16 * ld + (nd0 + dp) * 16);
+    }
+    if (d0 == 0) {
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < kVP; ++dp) {
+      if (d0 + dp < nk) {
+        mma_bf16(o[2 * (d0 + dp)], pa, bv[st & 1][dp][0], bv[st & 1][dp][1]);
+        mma_bf16(o[2 * (d0 + dp) + 1], pa, bv[st & 1][dp][2],
+                 bv[st & 1][dp][3]);
+      }
+    }
+  }
 }
 
 // q/out (B, S, H, Dh), k/v (B, S, KV, Dh), contiguous.  Grid: (query
 // tiles, B * H); the heaviest (last) query tiles start first.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int S, int H, int KV, int Dh, int window,
-    float softcap, float scale) {
-  __shared__ float4 sk[kKB][kMaxDh / 4];
-  __shared__ float4 sv[kKB][kMaxDh / 4];
+__global__ void __launch_bounds__(kBf16Threads, kBf16MinCtas)
+flash_attention_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H, int KV,
+    int Dh, int window, float softcap, float scale) {
+  constexpr int kQB = kBf16QB, kKB = kBf16KB, kNT = kKB / 8;
+  static_assert(kQB <= 2 * kKB, "Q's tile fits a K/V buffer");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = row_elems(Dh, 2);
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // buffer b: K at sk + b *
+  bf16* sv = sk + kKB * ld;                      // 2 * kKB * ld, V after it
+  bf16* sq = sk + 2 * kKB * ld;                  // buffer 1, before its fill
+
   const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kQB;
-  const int row = threadIdx.x / kTPR, part = threadIdx.x % kTPR;
-  const int qi = q0 + row;
-  const int nv = Dh / (4 * kTPR), d4 = Dh / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;       // mma fragment row / pair
+  const int mi = lane >> 3, mr = lane & 7;       // ldmatrix matrix / row
+  const int nk = Dh / 16;
+  const long long qs = (long long)H * Dh, ks = (long long)KV * Dh;
+  const bf16* qb = q + ((long long)b * S * H + h) * Dh;
+  const bf16* kb = k + ((long long)b * S * KV + kvh) * Dh;
+  const bf16* vb = v + ((long long)b * S * KV + kvh) * Dh;
 
-  float4 qr[kMaxV], acc[kMaxV];
+  const KeyRange keys = key_range(q0, S, window, kQB, kKB);
+  const int k_begin = keys.begin, k_end = keys.end;
+  load_rows<bf16, kBf16Threads, kQB>(sq, ld, qb, qs, q0, S, Dh);
+  load_rows<bf16, kBf16Threads, kKB>(sk, ld, kb, ks, k_begin, S, Dh);
+  load_rows<bf16, kBf16Threads, kKB>(sv, ld, vb, ks, k_begin, S, Dh);
+  cp_commit();
+
+  const int wq0 = q0 + 16 * warp;                // the warp's first row
+  const int row0 = wq0 + g, row1 = row0 + 8;
+  const float sl = scale * kLog2e, sc = softcap > 0.f ? scale / softcap : 0.f;
+  uint32_t qf[kMaxDh / 16][4];
+  float o[kMaxDh / 8][4];
 #pragma unroll
-  for (int i = 0; i < kMaxV; ++i) {
-    qr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[i] = qr[i];
-    if (i < nv && qi < S) {
-      const float4 x = load4(q + ((long long)(b * S + qi) * H + h) * Dh +
-                             4 * (i * kTPR + part));
-      qr[i] = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-    }
-  }
-  float m = kNeg, l = 0.f;
-  const int k_end = min(S, q0 + kQB);
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kKB * kKB : 0;
+  for (int i = 0; i < kMaxDh / 8; ++i)
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int kt = k_begin; kt < k_end; kt += kKB) {
+  int buf = 0;
+  for (int kt = k_begin; kt < k_end; kt += kKB, buf ^= 1) {
+    // tile kt has landed, and every warp is done with the other buffer
+    cp_wait<0>();
     __syncthreads();
-    for (int e = threadIdx.x; e < kKB * d4; e += kThreads) {
-      const int r = e / d4, c = e % d4, kj = kt + r;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (kj < S) {
-        const long long off = ((long long)(b * S + kj) * KV + kvh) * Dh + 4 * c;
-        kk = load4(k + off);
-        vv = load4(v + off);
-      }
-      sk[r][c] = kk;
-      sv[r][c] = vv;
+    if (kt == k_begin) {   // Q into registers, then its buffer is free
+#pragma unroll
+      for (int kk = 0; kk < kMaxDh / 16; ++kk)
+        if (kk < nk)
+          ldsm_x4(qf[kk], sq + (16 * warp + mr + (mi & 1) * 8) * ld + kk * 16 +
+                              (mi >> 1) * 8);
+      __syncthreads();
     }
-    __syncthreads();
-
-    float s[kKB];
-    float mt = kNeg;
-    unsigned keep = 0u;
+    if (kt + kKB < k_end) {
+      load_rows<bf16, kBf16Threads, kKB>(sk + (buf ^ 1) * 2 * kKB * ld, ld, kb,
+                                         ks, kt + kKB, S, Dh);
+      load_rows<bf16, kBf16Threads, kKB>(sv + (buf ^ 1) * 2 * kKB * ld, ld, vb,
+                                         ks, kt + kKB, S, Dh);
+      cp_commit();
+    }
+    // a tile the masks empty for all of this warp's rows adds nothing
+    const bool empty = kt > wq0 + 15 ||
+                       (window > 0 && wq0 - (kt + kKB - 1) >= window);
+    if (!empty) {
+      const bf16* kt_s = sk + buf * 2 * kKB * ld;
+      const bf16* vt_s = sv + buf * 2 * kKB * ld;
+      float s[kNT][4];
 #pragma unroll
-    for (int j = 0; j < kKB; ++j) {
-      float p = 0.f;
+      for (int i = 0; i < kNT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      // Q.K^T; the K fragments of dim step kk + 1 load while step kk
+      // multiplies
+      const bf16* ka = kt_s + (mr + (mi >> 1) * 8) * ld + (mi & 1) * 8;
+      uint32_t bk[2][kNT / 2][4];
 #pragma unroll
-      for (int i = 0; i < kMaxV; ++i) {
-        if (i < nv) {
-          const float4 kk = sk[j][i * kTPR + part];
-          p += qr[i].x * kk.x + qr[i].y * kk.y + qr[i].z * kk.z +
-               qr[i].w * kk.w;
+      for (int np = 0; np < kNT / 2; ++np)
+        ldsm_x4(bk[0][np], ka + np * 16 * ld);
+#pragma unroll
+      for (int kk = 0; kk < kMaxDh / 16; ++kk) {
+        if (kk < nk) {
+          if (kk + 1 < nk) {
+#pragma unroll
+            for (int np = 0; np < kNT / 2; ++np)
+              ldsm_x4(bk[(kk + 1) & 1][np], ka + np * 16 * ld + (kk + 1) * 16);
+          }
+#pragma unroll
+          for (int np = 0; np < kNT / 2; ++np) {
+            mma_bf16(s[2 * np], qf[kk], bk[kk & 1][np][0], bk[kk & 1][np][1]);
+            mma_bf16(s[2 * np + 1], qf[kk], bk[kk & 1][np][2],
+                     bk[kk & 1][np][3]);
+          }
         }
       }
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      if (softcap > 0.f) p = softcap * tanhf(p / softcap);
-      const int kj = kt + j;
-      const bool ok = kj <= qi && kj < S && (window <= 0 || qi - kj < window);
-      s[j] = ok ? p : kNeg;
-      keep |= (unsigned)ok << j;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float sum = 0.f;
+      // the first V fragments load during the softmax
+      const bf16* va = vt_s + (mr + (mi & 1) * 8) * ld + (mi >> 1) * 8;
+      uint32_t bv[2][kVP][4];
 #pragma unroll
-    for (int j = 0; j < kKB; ++j) {
-      s[j] = (keep >> j) & 1u ? expf(s[j] - m_new) : 0.f;
-      sum += s[j];
-    }
-    l = l * alpha + sum;
+      for (int dp = 0; dp < kVP; ++dp)
+        if (dp < nk) ldsm_x4_t(bv[0][dp], va + dp * 16);
+      // scores in log2 units, masked ones -inf
+      const bool full = kt + kKB - 1 <= wq0 && kt + kKB <= S &&
+                        (window <= 0 || wq0 + 15 - kt < window);
+      // logits: the softcap's, in log2 units; without it s itself, scaled
+      // by sl = scale * log2(e) in the exponent (max and scale commute)
+      const float ls2 = softcap > 0.f ? 1.f : sl;
+      if (softcap > 0.f) {
 #pragma unroll
-    for (int i = 0; i < kMaxV; ++i) {
-      acc[i].x *= alpha;
-      acc[i].y *= alpha;
-      acc[i].z *= alpha;
-      acc[i].w *= alpha;
-    }
+        for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-    for (int j = 0; j < kKB; ++j) {
+          for (int e = 0; e < 4; ++e)
+            s[nt][e] = softcap * tanhf(s[nt][e] * sc) * kLog2e;
+      }
+      if (!full) {
 #pragma unroll
-      for (int i = 0; i < kMaxV; ++i) {
-        if (i < nv) {
-          const float4 vv = sv[j][i * kTPR + part];
-          acc[i].x += s[j] * vv.x;
-          acc[i].y += s[j] * vv.y;
-          acc[i].z += s[j] * vv.z;
-          acc[i].w += s[j] * vv.w;
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kt + nt * 8 + 2 * tig + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            const bool ok =
+                key <= row && key < S && (window <= 0 || row - key < window);
+            s[nt][e] = ok ? s[nt][e] : -INFINITY;
+          }
         }
       }
+      // the rows' maxima, as a tree
+      float mx[kNT][2];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        mx[nt][0] = fmaxf(s[nt][0], s[nt][1]);
+        mx[nt][1] = fmaxf(s[nt][2], s[nt][3]);
+      }
+#pragma unroll
+      for (int w = 1; w < kNT; w *= 2)
+#pragma unroll
+        for (int nt = 0; nt < kNT; nt += 2 * w) {
+          mx[nt][0] = fmaxf(mx[nt][0], mx[nt + w][0]);
+          mx[nt][1] = fmaxf(mx[nt][1], mx[nt + w][1]);
+        }
+      const float mn0 = fmaxf(m0, quad_max(mx[0][0]) * ls2);
+      const float mn1 = fmaxf(m1, quad_max(mx[0][1]) * ls2);
+      // a row with nothing unmasked yet keeps m = -inf; subtract 0 then
+      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+      // rescale only where a row's maximum moved (else alpha is 1)
+      if (__any_sync(0xffffffffu, mn0 != m0 || mn1 != m1)) {
+        const float a0 = exp2f(m0 - mu0), a1 = exp2f(m1 - mu1);
+        l0 *= a0;
+        l1 *= a1;
+#pragma unroll
+        for (int i = 0; i < kMaxDh / 8; ++i) {
+          o[i][0] *= a0;
+          o[i][1] *= a0;
+          o[i][2] *= a1;
+          o[i][3] *= a1;
+        }
+      }
+      m0 = mn0;
+      m1 = mn1;
+      float ls[kNT][2];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        s[nt][0] = exp2f(s[nt][0] * ls2 - mu0);
+        s[nt][1] = exp2f(s[nt][1] * ls2 - mu0);
+        s[nt][2] = exp2f(s[nt][2] * ls2 - mu1);
+        s[nt][3] = exp2f(s[nt][3] * ls2 - mu1);
+        ls[nt][0] = s[nt][0] + s[nt][1];
+        ls[nt][1] = s[nt][2] + s[nt][3];
+      }
+#pragma unroll
+      for (int w = 1; w < kNT; w *= 2)
+#pragma unroll
+        for (int nt = 0; nt < kNT; nt += 2 * w) {
+          ls[nt][0] += ls[nt + w][0];
+          ls[nt][1] += ls[nt + w][1];
+        }
+      l0 += ls[0][0];
+      l1 += ls[0][1];
+      // P (bf16, in registers) . V
+      if (nk > kVP)
+        pv_bf16<kMaxDh / 16 / kVP>(o, s, bv, va, ld, nk);
+      else
+        pv_bf16<1>(o, s, bv, va, ld, nk);
     }
-    m = m_new;
   }
 
-  if (qi < S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  bf16* ob = out + ((long long)b * S * H + h) * Dh + 2 * tig;
 #pragma unroll
-    for (int i = 0; i < kMaxV; ++i) {
-      if (i < nv) {
-        store4(out + ((long long)(b * S + qi) * H + h) * Dh +
-                   4 * (i * kTPR + part),
-               make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv,
-                           acc[i].w * inv));
-      }
+  for (int i = 0; i < kMaxDh / 8; ++i) {
+    if (i < Dh / 8) {
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(ob + row0 * qs + i * 8) =
+            pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
+      if (row1 < S)
+        *reinterpret_cast<uint32_t*>(ob + row1 * qs + i * 8) =
+            pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int Dh, int window, float softcap,
-           float scale, void* stream) {
-  const dim3 grid((S + kQB - 1) / kQB, B * H);
-  flash_attention_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, Dh, window,
-      softcap, scale);
-  return (int)cudaGetLastError();
+// ---- fp32 on the CUDA cores ---------------------------------------------
+__device__ __forceinline__ void fma4(float& acc, float4 a, float4 b) {
+  acc += a.x * b.x;
+  acc += a.y * b.y;
+  acc += a.z * b.z;
+  acc += a.w * b.w;
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, float p, float4 v) {
+  acc.x += p * v.x;
+  acc.y += p * v.y;
+  acc.z += p * v.z;
+  acc.w += p * v.w;
+}
+
+__global__ void __launch_bounds__(kF32Threads, kF32MinCtas)
+flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int S, int H,
+    int KV, int Dh, int window, float softcap, float scale) {
+  constexpr int kQB = kF32QB, kKB = kF32KB, kLdP = kF32LdP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = row_elems(Dh, 4);
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sk = sq + kQB * ld;                     // [2][kKB][ld]
+  float* sv = sk + 2 * kKB * ld;                 // [2][kKB][ld]
+  float* sp = sv + 2 * kKB * ld;                 // [kQB][kLdP]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 7, ty = 4 * warp + (lane >> 3);
+  const int d4 = Dh / 4;
+  const long long qs = (long long)H * Dh, ks = (long long)KV * Dh;
+  const float* qb = q + ((long long)b * S * H + h) * Dh;
+  const float* kb = k + ((long long)b * S * KV + kvh) * Dh;
+  const float* vb = v + ((long long)b * S * KV + kvh) * Dh;
+
+  const KeyRange keys = key_range(q0, S, window, kQB, kKB);
+  const int k_begin = keys.begin, k_end = keys.end;
+  load_rows<float, kF32Threads, kQB>(sq, ld, qb, qs, q0, S, Dh);
+  load_rows<float, kF32Threads, kKB>(sk, ld, kb, ks, k_begin, S, Dh);
+  load_rows<float, kF32Threads, kKB>(sv, ld, vb, ks, k_begin, S, Dh);
+  cp_commit();
+
+  const float sc = softcap > 0.f ? scale / softcap : 0.f;
+  float4 o[4][4];
+  float m[4], l[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  int buf = 0;
+  for (int kt = k_begin; kt < k_end; kt += kKB, buf ^= 1) {
+    // tile kt has landed, and every warp is done with the other buffer
+    cp_wait<0>();
+    __syncthreads();
+    if (kt + kKB < k_end) {
+      load_rows<float, kF32Threads, kKB>(sk + (buf ^ 1) * kKB * ld, ld, kb,
+                                         ks, kt + kKB, S, Dh);
+      load_rows<float, kF32Threads, kKB>(sv + (buf ^ 1) * kKB * ld, ld, vb,
+                                         ks, kt + kKB, S, Dh);
+      cp_commit();
+    }
+    const float* kt_s = sk + buf * kKB * ld;
+    const float* vt_s = sv + buf * kKB * ld;
+
+    float s[4][kF32KC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < kF32KC; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < Dh; d += 4) {
+      float4 qa[4], kk[kF32KC];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        qa[r] = *reinterpret_cast<const float4*>(sq + (ty + 16 * r) * ld + d);
+#pragma unroll
+      for (int c = 0; c < kF32KC; ++c)
+        kk[c] = *reinterpret_cast<const float4*>(kt_s + (tx + 8 * c) * ld + d);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < kF32KC; ++c) fma4(s[r][c], qa[r], kk[c]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + ty + 16 * r;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kF32KC; ++c) {
+        const int key = kt + tx + 8 * c;
+        float x = softcap > 0.f ? softcap * tanhf(s[r][c] * sc)
+                                : s[r][c] * scale;
+        const bool ok =
+            key <= row && key < S && (window <= 0 || row - key < window);
+        s[r][c] = ok ? x : -INFINITY;
+        mt = fmaxf(mt, s[r][c]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float mn = fmaxf(m[r], mt);
+      const float mu = mn == -INFINITY ? 0.f : mn;
+      const float alpha = expf(m[r] - mu);
+      m[r] = mn;
+      l[r] *= alpha;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        o[r][c].x *= alpha;
+        o[r][c].y *= alpha;
+        o[r][c].z *= alpha;
+        o[r][c].w *= alpha;
+      }
+#pragma unroll
+      for (int c = 0; c < kF32KC; ++c) {
+        const float p = expf(s[r][c] - mu);
+        l[r] += p;
+        sp[(ty + 16 * r) * kLdP + tx + 8 * c] = p;
+      }
+    }
+    __syncwarp();   // a row's P is written and read by the same warp
+
+#pragma unroll 2
+    for (int j = 0; j < kKB; j += 4) {
+      float4 pr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pr[r] = *reinterpret_cast<const float4*>(sp + (ty + 16 * r) * kLdP + j);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (tx + 8 * c < d4) {
+          const float* vr = vt_s + j * ld + 4 * (tx + 8 * c);
+          const float4 v0 = *reinterpret_cast<const float4*>(vr);
+          const float4 v1 = *reinterpret_cast<const float4*>(vr + ld);
+          const float4 v2 = *reinterpret_cast<const float4*>(vr + 2 * ld);
+          const float4 v3 = *reinterpret_cast<const float4*>(vr + 3 * ld);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            axpy4(o[r][c], pr[r].x, v0);
+            axpy4(o[r][c], pr[r].y, v1);
+            axpy4(o[r][c], pr[r].z, v2);
+            axpy4(o[r][c], pr[r].w, v3);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 4);
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    const int row = q0 + ty + 16 * r;
+    if (row < S) {
+      float* orow = out + ((long long)b * S * H + h) * Dh + row * qs;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (tx + 8 * c < d4)
+          *reinterpret_cast<float4*>(orow + 4 * (tx + 8 * c)) =
+              make_float4(o[r][c].x * inv, o[r][c].y * inv, o[r][c].z * inv,
+                          o[r][c].w * inv);
+    }
+  }
 }
 
 }  // namespace
 
+// The launch configuration the launcher uses for (is_bf16, Dh, B, S, H):
+// out[0..4] = query rows per CTA, keys per tile, dynamic shared memory
+// bytes, grid x, grid y.
+extern "C" void flash_attention_config(int is_bf16, int Dh, int B, int S, int H,
+                                       long long* out) {
+  const int qb = is_bf16 ? kBf16QB : kF32QB;
+  out[0] = qb;
+  out[1] = is_bf16 ? kBf16KB : kF32KB;
+  out[2] = is_bf16 ? bf16_smem(Dh) : f32_smem(Dh);
+  out[3] = (S + qb - 1) / qb;
+  out[4] = (long long)B * H;
+}
+
+// The key tiles the CTA of query rows [q0, q0 + query rows) loads: out[0]
+// = first key of the first tile, out[1] = one past the last key.
+extern "C" void flash_attention_key_range(int is_bf16, int q0, int S,
+                                          int window, long long* out) {
+  const KeyRange r = is_bf16 ? key_range(q0, S, window, kBf16QB, kBf16KB)
+                             : key_range(q0, S, window, kF32QB, kF32KB);
+  out[0] = r.begin;
+  out[1] = r.end;
+}
+
 // Dh a multiple of 16 up to 128, H a multiple of KV, 16-byte aligned
-// pointers (the wrapper checks).  bf16 != 0: all four tensors bf16, else
+// pointers (the wrapper checks).  is_bf16 != 0: all four tensors bf16, else
 // fp32.  window 0 = global; softcap 0 = none.  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int Dh, int window,
-                                      float softcap, float scale, int bf16,
+                                      float softcap, float scale, int is_bf16,
                                       void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, Dh, window,
-                                      softcap, scale, stream)
-              : launch<float>(q, k, v, out, B, S, H, KV, Dh, window, softcap,
-                              scale, stream);
+  long long cfg[5];
+  flash_attention_config(is_bf16, Dh, B, S, H, cfg);
+  const dim3 grid((unsigned)cfg[3], (unsigned)cfg[4]);
+  const int smem = (int)cfg[2];
+  cudaError_t err;
+  if (is_bf16) {
+    err = cudaFuncSetAttribute(flash_attention_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_bf16_kernel<<<grid, kBf16Threads, smem,
+                                  (cudaStream_t)stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, KV, Dh,
+        window, softcap, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_attention_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_f32_kernel<<<grid, kF32Threads, smem,
+                                 (cudaStream_t)stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), S, H, KV, Dh,
+        window, softcap, scale);
+  }
+  return (int)cudaGetLastError();
 }

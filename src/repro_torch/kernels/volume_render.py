@@ -4,12 +4,16 @@ Replaces the TPU kernel ``repro/kernels/volume_render.py``
 ``volume_render_call`` (``_vr_kernel``): Eq. (1) compositing of sigma and
 delta per sample, with the §4.3 anchor colors expanded to every sample by
 lerp.  The CUDA kernel (``csrc/volume_render.cu``, built by ``_build.py``
-with nvcc for sm_90a) takes one ray per thread and lerps the two
-enclosing anchors directly (``core/decouple.py``'s rule) where the TPU
-kernel multiplies by a constant expansion matrix, and carries the
-exclusive sum of sigma * delta where the TPU kernel subtracts each sd from
-an inclusive cumsum (which cancels once one sd dwarfs the prefix).  Bound
-on the H100: bytes.
+with nvcc for sm_90a) lerps the two enclosing anchors directly
+(``core/decouple.py``'s rule) where the TPU kernel multiplies by a
+constant expansion matrix, and carries the exclusive sum of sigma * delta
+where the TPU kernel subtracts each sd from an inclusive cumsum (which
+cancels once one sd dwarfs the prefix).  Bound on the H100: bytes.  A
+warp takes ``RAYS`` consecutive rays and stages chunks of ``CHUNK``
+samples of their sigma, delta and anchors through shared memory by
+cp.async, double-buffered, so its loads coalesce; each lane then walks
+its own ray.  ``volume_render_smem_bytes`` reckons the shared memory,
+bounded whatever S and A are.
 
 Output rows (R, 4): [acc, r, g, b], before any background.
 
@@ -28,6 +32,47 @@ import torch
 from . import _build
 
 OUT_W = 4
+RAYS = 32          # rays per warp
+WARPS = 2          # warps per CTA
+CHUNK = 16         # samples per staged chunk
+ROW_FLOATS = CHUNK + 4   # a ray's padded row of one chunk
+
+
+def anchors_per_chunk(S: int, A: int, group: int) -> int:
+    """Most anchors the samples of one chunk lerp between (lo and hi of
+    each, clamped to A - 1), over the chunks of a ray of S samples."""
+    most = 1
+    for s0 in range(0, S, CHUNK):
+        n = min(CHUNK, S - s0)
+        lo = min(s0 // group, A - 1)
+        hi = min((s0 + n - 1) // group + 1, A - 1)
+        most = max(most, hi - lo + 1)
+    return most
+
+
+def anchor_row(na: int) -> int:
+    """Floats of one ray's staged anchors: a run of ``na`` anchors from the
+    16-B boundary at or below its start (up to 3 floats before it), in an
+    odd number of float4s, so the 32 lanes' rows fall on distinct banks."""
+    return 4 * ((3 * na + 6) // 4 | 1)
+
+
+def volume_render_smem_bytes(S: int, A: int, group: int) -> int:
+    """Dynamic shared memory of the kernel: per warp two buffers, each the
+    sigma and delta rows of RAYS rays (ROW_FLOATS floats a ray) and their
+    anchors (``anchor_row``), then RAYS floats of the lerp offsets
+    m / group.  At most CHUNK + 1 anchors a chunk, so bounded."""
+    arow = anchor_row(anchors_per_chunk(S, A, group))
+    return 4 * WARPS * (2 * RAYS * (2 * ROW_FLOATS + arow) + RAYS)
+
+
+def volume_render_launch_smem(S: int, A: int, group: int) -> int:
+    """Bytes of shared memory the launcher asks for (the compiled
+    library's own reckoning; builds it)."""
+    fn = _build.library("volume_render").volume_render_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(S, A, group))
 
 
 def volume_render_plain(sigmas, deltas, anchors, group: int):

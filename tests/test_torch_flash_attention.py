@@ -16,6 +16,7 @@ from repro.models import attention as A
 from repro_torch.configs import gemma2_27b as t_gemma
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from test_torch_gpu import KEY_TILE_CASES, direct_key_tiles
 
 # the reference kernel's own tolerance (tests/test_flash_attention.py)
 RTOL, ATOL = 2e-4, 2e-5
@@ -93,3 +94,77 @@ def test_gemma2_attention_widths_match_the_reference(name):
     j, t = getattr(j_gemma, name), getattr(t_gemma, name)
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
+
+
+# ---- the kernel's tile and grid arithmetic (kernels/flash_attention.py)
+
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+@pytest.mark.parametrize("dtype,S,window", KEY_TILE_CASES)
+def test_flash_key_tiles_match_a_direct_count(dtype, S, window):
+    """For every query tile, the key tiles the wrapper reckons the kernel
+    loads are exactly those holding an unmasked (query, key) pair, also for
+    a window whose first key falls mid-tile and a length off the tile grid.
+    (``test_torch_gpu`` holds the compiled kernels' range to the same
+    count.)"""
+    dt = DTYPES[dtype]
+    want = direct_key_tiles(S, window, dt)
+    assert tfa.grid(3, S, 5, dt) == (len(want), 15)
+    for q0, tiles in want.items():
+        assert list(tfa.key_tiles(q0, S, window, dt)) == tiles, q0
+
+
+@pytest.mark.parametrize("Dh", [16, 48, 64, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_smem_counts_the_tiles_and_fits_two_ctas(dtype, Dh):
+    """Shared memory: two buffers each of a K and a V tile (rows padded by
+    16 B); for bf16 Q's tile fits in one of them, for fp32 it has its own
+    and the P tile; two CTAs fit on one SM at every head width (the
+    H100's 228 KB, 1 KB of it reserved per CTA)."""
+    dt = DTYPES[dtype]
+    qb, kb = tfa.QUERY_TILE[dt], tfa.KEY_TILE[dt]
+    item = 2 if dt == torch.bfloat16 else 4
+    row = Dh * item + 16
+    want = row * 2 * 2 * kb
+    if dt == torch.float32:
+        want += row * qb + qb * tfa.F32_P_ROW * 4
+    else:
+        assert qb <= 2 * kb
+    assert tfa.smem_bytes(Dh, dt) == want
+    assert row % 16 == 0 and (row // 16) % 2 == 1    # odd: no bank conflicts
+    assert 2 * (tfa.smem_bytes(Dh, dt) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (128, 0.0), (0, 50.0)])
+def test_flash_plain_bf16_with_rounded_p_matches_attend_full(window, cap):
+    """The plain version on bf16 inputs, P rounded to bf16 before P.V as
+    the kernel does, against the JAX oracle on the same bf16 values."""
+    q, k, v = _qkv(2, 256, 4, 2, 64, seed=11 + window)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    got = tfa.flash_attention_plain(*bf, window=window, softcap=cap)
+    assert got.dtype == torch.bfloat16
+    want = _oracle(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in bf),
+                   window, cap)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_flash_plain_bf16_rounds_p_before_pv():
+    """Two keys whose weights, 1 and exp(-0.001), are equal once rounded
+    to bf16, against values +100 and -100: with P rounded before P.V (as
+    the kernel does) the second row's output is exactly 0; unrounded it
+    would be about -0.05."""
+    Dh = 16
+    q = torch.zeros(1, 2, 1, Dh)
+    k = torch.zeros(1, 2, 1, Dh)
+    v = torch.zeros(1, 2, 1, Dh)
+    q[0, :, 0, 0] = 1.0
+    k[0, 0, 0, 0] = -0.004          # score 0.25 * -0.004 = -0.001
+    v[0, 0, 0, :], v[0, 1, 0, :] = 100.0, -100.0
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    got = tfa.flash_attention_plain(*bf).float()
+    assert torch.all(got[0, 0, 0] == 100.0)
+    assert torch.all(got[0, 1, 0] == 0.0)
+    unrounded = tfa.flash_attention_plain(*(t.float() for t in bf))
+    assert float(unrounded[0, 1, 0, 0]) < -0.04

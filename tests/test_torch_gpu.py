@@ -1,7 +1,10 @@
-"""The rebuilt density and march kernels on the card: each held to its
-plain version bit for bit on small inputs, and their launchers asking for
-the shared memory the wrappers reckon.  Marked ``gpu``: they skip without
-a CUDA device and run on a machine with an H100 and the CUDA toolkit:
+"""The rebuilt kernels on the card: the density, march and volume-render
+kernels held to their plain versions bit for bit on small inputs, flash
+attention within its tolerances (fp32 and bf16, window, softcap, GQA
+ratios 1, 2 and 8, lengths off the tile grid), and the launchers asking
+for the shared memory (and, for flash attention, the tiles and grid) the
+wrappers reckon.  Marked ``gpu``: they skip without a CUDA device and run
+on a machine with an H100 and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -9,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_march as FMA
 from repro_torch.kernels import fused_mlp as FM
+from repro_torch.kernels import volume_render as VR
 from test_torch_march_tiles import (CASES, PAPER_COLOR, PAPER_DENSITY,
                                     _march_inputs)
 
@@ -49,3 +54,108 @@ def test_fused_march_matches_plain(name, cuda):
     args = tuple(a.to(cuda) if torch.is_tensor(a) else a for a in args)
     got = FMA.fused_march(*args, **kw)
     assert torch.equal(got, FMA.fused_march_plain(*args, **kw))
+
+
+# rtol, atol, and a limit on ||got - want|| / ||want|| (bf16: 2-3x the
+# error measured on the card: max 3.9e-3, one bf16 step of the output;
+# norm 0.8-1.0e-3).
+ATTN_TOL = {torch.float32: (2e-4, 2e-5, None),
+            torch.bfloat16: (1e-2, 8e-3, 3e-3)}
+
+
+def assert_attention_close(got, want, dtype):
+    rtol, atol, rel = ATTN_TOL[dtype]
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if rel is not None:
+        assert torch.linalg.norm(got - want) <= rel * torch.linalg.norm(want)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 0.0), (0, 50.0),
+                                            (100, 30.0)])
+@pytest.mark.parametrize("ratio", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dtype, ratio, window, softcap, cuda):
+    rng = np.random.default_rng(ratio + window)
+    B, S, KV, Dh = 2, 333, 2, 64
+    H = KV * ratio
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               .to(cuda).to(dtype)
+               for sh in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh)))
+    got = FA.flash_attention(q, k, v, window, softcap)
+    want = FA.flash_attention_plain(q, k, v, window, softcap)
+    assert got.dtype == dtype
+    assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("Dh", [16, 48, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_widths(dtype, Dh, cuda):
+    rng = np.random.default_rng(Dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               .to(cuda).to(dtype)
+               for sh in ((1, 200, 4, Dh), (1, 200, 2, Dh), (1, 200, 2, Dh)))
+    assert_attention_close(FA.flash_attention(q, k, v, 48, 0.0),
+                           FA.flash_attention_plain(q, k, v, 48), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launcher_uses_the_reckoned_tiles(dtype, cuda):
+    for Dh, S in ((128, 8192), (64, 333), (16, 1)):
+        assert FA.launch_config(Dh, 2, S, 8, dtype) == (
+            FA.QUERY_TILE[dtype], FA.KEY_TILE[dtype], FA.smem_bytes(Dh, dtype),
+            *FA.grid(2, S, 8, dtype))
+
+
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+KEY_TILE_CASES = [(dtype, S, window) for dtype in DTYPES
+                  for S in (200, 333, 512) for window in (0, 1, 48, 100, 130)]
+
+
+def direct_key_tiles(S, window, dt):
+    """{first row of each query tile: first keys of the key tiles holding an
+    unmasked (query, key) pair of its rows}, counted pair by pair."""
+    qb, kb = FA.QUERY_TILE[dt], FA.KEY_TILE[dt]
+    qi = np.arange(S)[:, None]
+    kj = np.arange(S)[None, :]
+    keep = kj <= qi
+    if window:
+        keep &= qi - kj < window
+    return {q0: sorted({k // kb * kb
+                        for k in np.nonzero(keep[q0:q0 + qb].any(axis=0))[0]})
+            for q0 in range(0, S, qb)}
+
+
+@pytest.mark.parametrize("dtype,S,window", KEY_TILE_CASES)
+def test_flash_kernel_key_tiles_match_a_direct_count(dtype, S, window, cuda):
+    """The key tiles the compiled kernels load for each query tile are those
+    holding an unmasked pair, as the CPU test holds the wrapper's
+    reckoning."""
+    dt = DTYPES[dtype]
+    for q0, tiles in direct_key_tiles(S, window, dt).items():
+        assert list(FA.launched_key_tiles(q0, S, window, dt)) == tiles, q0
+
+
+@pytest.mark.parametrize("R,S,A,group", [(1005, 50, 1, 3), (1005, 50, 17, 3),
+                                         (77, 192, 96, 2), (33, 7, 3, 3),
+                                         (64, 64, 64, 1)])
+def test_volume_render_matches_plain(R, S, A, group, cuda):
+    rng = np.random.default_rng(R + S)
+    sig = torch.from_numpy(rng.uniform(0, 8, (R, S)).astype(np.float32))
+    dl = torch.from_numpy(rng.uniform(0, 0.05, (R, S)).astype(np.float32))
+    anch = torch.from_numpy(rng.uniform(size=(R, A, 3)).astype(np.float32))
+    sig, dl, anch = sig.to(cuda), dl.to(cuda), anch.to(cuda)
+    want = VR.volume_render_plain(sig, dl, anch, group)
+    assert torch.equal(VR.volume_render(sig, dl, anch, group), want)
+    # one float off 16-B alignment: the kernel's 4-B copies
+    flat = torch.zeros(anch.numel() + 1, device=cuda)
+    flat[1:] = anch.reshape(-1)
+    assert torch.equal(VR.volume_render(sig, dl, flat[1:].view(R, A, 3),
+                                        group), want)
+
+
+def test_volume_render_launcher_asks_for_the_reckoned_shared_memory(cuda):
+    for S, A, group in ((192, 96, 2), (50, 1, 3), (64, 64, 1), (7, 3, 3),
+                        (1000, 10, 100)):
+        assert VR.volume_render_launch_smem(S, A, group) == \
+            VR.volume_render_smem_bytes(S, A, group)

@@ -20,7 +20,7 @@ from repro.core.model import NGPConfig as JNGPConfig, init_ngp
 from repro_torch import params as tparams
 from repro_torch.configs import ingp_asdr as t_bundles
 from repro_torch.core import fields, pipeline, scene
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, tile_variants
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -128,6 +128,23 @@ def test_bundles_match_the_reference(name):
     assert dataclasses.asdict(t.asdr) == dataclasses.asdict(j.asdr)
     assert (t.name, t.image_hw, t.train_batch_rays) == (
         j.name, j.image_hw, j.train_batch_rays)
+
+
+@pytest.mark.parametrize("group", list(tile_variants.GROUPS))
+def test_tile_variants_set_constants_the_sources_define(group):
+    """Each tile variant rewrites constants its file defines once, in a file
+    its source compiles; the committed variant rewrites nothing."""
+    src, fname, variants = tile_variants.GROUPS[group]
+    assert fname == f"{src}.cu" or f'#include "{fname}"' in (
+        _build.CSRC / f"{src}.cu").read_text()
+    text = (_build.CSRC / fname).read_text()
+    assert list(variants.values())[0] == {}
+    for consts in variants.values():
+        out = tile_variants.with_constants(text, fname, consts)
+        for name, value in consts.items():
+            assert f"constexpr int {name} = {value};" in out
+        assert (out == text) == all(
+            f"constexpr int {n} = {v};" in text for n, v in consts.items())
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

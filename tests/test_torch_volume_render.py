@@ -103,3 +103,58 @@ def test_volume_render_keeps_the_prefix_behind_a_huge_sample():
                                atol=ATOL)
     np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), rtol=RTOL,
                                atol=ATOL)
+
+
+# (S, A, group): the decoupled frame, ragged lengths, one anchor, groups
+# larger than a chunk, and fewer anchors than groups
+SMEM_CASES = [(192, 96, 2), (50, 1, 3), (50, 17, 3), (7, 3, 3), (64, 64, 1),
+              (1000, 10, 100), (17, 9, 2), (33, 2, 40)]
+
+
+@pytest.mark.parametrize("S,A,group", SMEM_CASES)
+def test_volume_render_smem_counts_the_anchors_each_chunk_reads(S, A, group):
+    """The kernel's shared memory against a direct count: for every chunk
+    of CHUNK samples, the anchors its samples lerp between (lo and hi of
+    each, clamped to A - 1) form one run, whose longest length sets a
+    ray's anchor row; sigma and delta take a padded row each; two buffers
+    and a table of RAYS lerp offsets per warp.  At most CHUNK + 1 anchors,
+    whatever S and A."""
+    most = 1
+    for s0 in range(0, S, tvr.CHUNK):
+        used = set()
+        for j in range(s0, min(S, s0 + tvr.CHUNK)):
+            used |= {min(j // group, A - 1), min(j // group + 1, A - 1)}
+        assert used == set(range(min(used), max(used) + 1))
+        most = max(most, len(used))
+    assert tvr.anchors_per_chunk(S, A, group) == most <= tvr.CHUNK + 1
+    # a run staged from the 16-B boundary below it spans up to 3 + 3 * most
+    # floats, in an odd number of float4s
+    arow = 4 * -(-(3 + 3 * most) // 4)
+    arow += 4 * (arow // 4 % 2 == 0)
+    assert tvr.anchor_row(most) == arow
+    per_warp = 2 * tvr.RAYS * (2 * tvr.ROW_FLOATS + arow) + tvr.RAYS
+    assert tvr.volume_render_smem_bytes(S, A, group) == 4 * tvr.WARPS * per_warp
+    assert tvr.ROW_FLOATS % 4 == 0 and per_warp % 4 == 0     # 16-B rows
+    assert tvr.volume_render_smem_bytes(S, A, group) <= \
+        tvr.volume_render_smem_bytes(10 ** 6, 10 ** 6, 1)
+
+
+def test_volume_render_plain_on_a_ragged_frame():
+    """R off the warp's 32 rays, S off the chunk, group 3, one anchor:
+    the plain version (what the kernel is held to bit for bit) against
+    the JAX oracle."""
+    rng = np.random.default_rng(21)
+    R, S, group, A = 37, 23, 3, 1
+    sig = (rng.uniform(size=(R, S)) * 8).astype(np.float32)
+    anch = rng.uniform(size=(R, A, 3)).astype(np.float32)
+    dl = rng.uniform(0.0, 0.05, size=(R, S)).astype(np.float32)
+    packed = tvr.volume_render_plain(*map(torch.from_numpy, (sig, dl, anch)),
+                                     group)
+    colors = np.broadcast_to(anch, (R, S, 3))
+    w = np.asarray(jref.ref_volume_render(
+        jnp.asarray(sig), jnp.asarray(np.ascontiguousarray(anch)),
+        jnp.asarray(dl), group, white_background=False)[1])
+    np.testing.assert_allclose(packed[:, 0].numpy(), w, rtol=RTOL, atol=ATOL)
+    acc = packed[:, 0].numpy()[:, None]
+    np.testing.assert_allclose(packed[:, 1:].numpy(), acc * colors[:, 0],
+                               rtol=RTOL, atol=ATOL)
