@@ -5,10 +5,10 @@ root of a checkout, on a machine with one NVIDIA H100.
 1. Builds the seven CUDA kernels from the five sources in
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
    source, all started together).  ptxas must report a 0-byte stack frame
-   and no spills for the four register-tiled kernels (density MLP, color
-   MLP, fused field, fused march), the volume render and both
-   flash-attention instantiations (bf16, fp32), whose registers it
-   prints; the density, march and volume-render launchers must ask for
+   and no spills for the hash encode, the four register-tiled kernels
+   (density MLP, color MLP, fused field, fused march), the volume render
+   and both flash-attention instantiations (bf16, fp32), whose registers
+   it prints; the density, march and volume-render launchers must ask for
    the shared memory their wrappers reckon, and the flash-attention
    launcher must use the wrapper's tiles, shared memory and grid.
 2. Runs each kernel against its plain PyTorch version on the card, at the
@@ -24,19 +24,28 @@ root of a checkout, on a machine with one NVIDIA H100.
    their plain versions at max abs error 0 (the color chains' plain
    versions emulate fmaf; the MLPs' run in chunks of ``PLAIN_ROWS``
    rows), the march's chunk counters with them; the color MLP also on a
-   ragged, unaligned slice.  The hash encode within rtol 1e-4 / atol 1e-5.
+   ragged, unaligned slice.  The hash encode at max abs error 0, on the
+   Phase-I rows and on one decoupled chunk's rows (65,536 rays x 192),
+   timed as the median of ``TIME_ROUNDS`` rounds of ``TIME_REPS``
+   launches with the L2 warm and after a ``FLUSH_BYTES`` flush, with the
+   card's clocks and power sampled beside; the distinct 32-B sectors its
+   warps' gathers touch are reckoned for its level-group mapping and the
+   point-major one it replaced.
 3. Renders the frame end to end at the paper's config
    (``configs/ingp_asdr.py`` CONFIG): the kernel path with
    ``march_backend="fused"`` (its launch counts are read from this run),
    the kernel field with the reference march, and the plain-torch field;
    then times the fused march alone on the frame's own blocks and budgets
-   (with and without color).  The count maps of the kernel and plain
-   paths may differ in at most 0.1 % of pixels, and their PSNRs against
-   the plain fixed-192 render of the same view by at most 0.1 dB.
+   (with and without color), beside the bound of the work they needed.
+   The count maps of the kernel and plain paths may differ in at most
+   0.1 % of pixels, and their PSNRs against the plain fixed-192 render of
+   the same view by at most 0.1 dB.
 4. Renders the §4.3 decoupled frame of the same view
    (``decouple.render_decoupled`` through the kernel field, in ray
-   chunks), then composites its kept samples with one ``volume_render``
-   launch over the whole frame (640,000 rays x 192 samples, 96 anchors),
+   chunks; a second run under ``torch.profiler`` gives each kernel's
+   device time and the device's idle share), then composites its kept
+   samples with one ``volume_render`` launch over the whole frame
+   (640,000 rays x 192 samples, 96 anchors),
    held against the plain version bit for bit and against
    render_decoupled's image (rtol 1e-4 / atol 1e-5), then at the
    ``RAGGED_RENDERS`` shapes (rays off the warp, samples off the chunk,
@@ -109,9 +118,10 @@ DECOUPLED_RAYS_PER_CALL = 1 << 16
 # one float64 temporary of a 4,915,200 x 128 layer step would be 5 GB.
 PLAIN_ROWS = 1 << 20
 # The kernels ptxas must give a 0-byte stack frame and no spills (the
-# register-tiled chains, the volume render and both flash-attention
-# instantiations), with their sources.
-TILE_KERNELS = {"color_mlp_kernel": "fused_mlp",
+# hash encode's instantiations, the register-tiled chains, the volume
+# render and both flash-attention instantiations), with their sources.
+TILE_KERNELS = {"hash_encode_kernel": "hash_encode",
+                "color_mlp_kernel": "fused_mlp",
                 "fused_field_kernel": "fused_mlp",
                 "density_mlp_kernel": "fused_mlp",
                 "fused_march_kernel": "fused_march",
@@ -137,6 +147,14 @@ ATTN_SEQ = 8192
 # negations and two exps, 1 - e, the weight, the running sum, acc and the
 # lerp offset (10), then per channel the lerp (3) and the weighted add (2).
 VOLUME_RENDER_FLOP = 10 + 3 * 5
+# The hash encode's timing: the median of TIME_ROUNDS rounds of TIME_REPS
+# launches, warm, and each launch after FLUSH_BYTES written (the tables
+# cold in L2, as a decoupled chunk's launch finds them after the color
+# MLP); nvidia-smi samples the card every SMI_MS ms beside the window.
+TIME_ROUNDS, TIME_REPS = 5, 10
+FLUSH_BYTES = 256 << 20
+SMI_QUERY = "clocks.sm,clocks.mem,power.draw,power.limit,temperature.gpu"
+SMI_MS = 100
 # fp32 operations of one trilinear encode of one point at one level:
 # 3 scales + 3 fracs, then per corner 2 weight products and F
 # multiply-adds (F = 2).
@@ -170,6 +188,93 @@ def timed(fn, dev, reps: int):
     for _ in range(reps):
         out = fn()
     return out, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def timed_rounds(fn, dev, flush=None, rounds=TIME_ROUNDS, reps=TIME_REPS):
+    """ms per call of each of ``rounds`` rounds of ``reps`` calls after a
+    warm-up call: CUDA events around each round's calls, or, where a
+    ``flush`` tensor is given, around each call alone, after ``flush`` is
+    overwritten (outside the events) so each call finds the L2 cold.  The
+    host clock on the CPU."""
+    import torch
+    fn()
+    out = []
+    for _ in range(rounds):
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            out.append(1e3 * (time.perf_counter() - t0) / reps)
+            continue
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(reps if flush is not None else 1)]
+        torch.cuda.synchronize(dev)
+        if flush is None:
+            ev[0][0].record()
+            for _ in range(reps):
+                fn()
+            ev[0][1].record()
+        else:
+            for start, end in ev:
+                flush.zero_()
+                start.record()
+                fn()
+                end.record()
+        torch.cuda.synchronize(dev)
+        out.append(sum(a.elapsed_time(b) for a, b in ev) / reps)
+    return out
+
+
+def spread(ms):
+    """'median (min-max over n rounds)' of per-round times."""
+    s = sorted(ms)
+    return (f"{s[len(s) // 2]:.3f} ({s[0]:.3f}-{s[-1]:.3f} over {len(s)} "
+            f"rounds)")
+
+
+class SmiSampler:
+    """nvidia-smi sampling the card's clocks, power and temperature every
+    SMI_MS ms while the ``with`` block runs (nothing off the card)."""
+
+    def __init__(self, dev):
+        self.dev, self.rows = dev, []
+
+    def __enter__(self):
+        import threading
+        if self.dev.type != "cuda":
+            return self
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", f"--query-gpu={SMI_QUERY}",
+             "--format=csv,noheader,nounits", "-lms", str(SMI_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=lambda: self.rows.extend(
+            [float(x) for x in line.split(",")] for line in self.proc.stdout
+            if line.count(",") == 4), daemon=True)
+        self.reader.start()
+        return self
+
+    def wait_for_samples(self, n=2, limit_s=5.0):
+        """Block until ``n`` samples came in (at most ``limit_s``)."""
+        t0 = time.perf_counter()
+        while (self.dev.type == "cuda" and len(self.rows) < n
+               and time.perf_counter() - t0 < limit_s):
+            time.sleep(0.01)
+
+    def __exit__(self, *exc):
+        if self.dev.type == "cuda":
+            self.proc.terminate()
+            self.proc.wait()
+            self.reader.join()
+
+    def summary(self) -> str:
+        if not self.rows:
+            return "card not sampled"
+        cols = list(zip(*self.rows))
+        rng = [f"{min(c):g}-{max(c):g}" for c in cols]
+        return (f"{len(self.rows)} nvidia-smi samples: SM clock {rng[0]} MHz, "
+                f"memory clock {rng[1]} MHz, power draw {rng[2]} W of "
+                f"{rng[3]} W limit, {rng[4]} C")
 
 
 def max_err(got, want, rtol=RTOL, atol=ATOL):
@@ -223,6 +328,35 @@ def kernel_row(name, src, replaces, *args, **kw):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": 0, **check(name, *args, **kw)}
+
+
+def march_reckoning(runs, budgets, res, acfg, fl_d, with_color):
+    """The work one fused-march run needed, from its chunk counters: the
+    valid samples of each chunk each ray ran and their anchors, and the
+    operations and bytes of its bound.  ``runs`` (nb, B) holds the chunks
+    each ray ran (its block's, where rays do not exit on their own),
+    ``budgets`` (nb,).  Returns (samples, anchors, flop, nbytes)."""
+    import numpy as np
+    from repro_torch.kernels import fused_march as FMA
+
+    runs, bud = np.asarray(runs), np.asarray(budgets).astype(np.int64)
+    nb, B = runs.shape
+    C = acfg.chunk
+    samples = anchors = 0
+    for ci in range(int(runs.max(initial=0))):
+        v = np.clip(bud - ci * C, 0, C)
+        live = (runs > ci).sum(axis=1)
+        samples += int((live * v).sum())
+        anchors += int((live * -(-v // acfg.group)).sum())
+    L = res.tables.shape[0]
+    flop = samples * (L * ENCODE_FLOP + fl_d["density_flops"])
+    if with_color:
+        flop += anchors * fl_d["color_flops"]
+    sh_dim = res.net.sh_dim if with_color else 0
+    nbytes = 4 * (nb * B * (2 * 3 + FMA.OUT_W + sh_dim) + nb
+                  + res.tables.numel() + res.density[0].numel()
+                  + res.color[0].numel())
+    return samples, anchors, flop, nbytes
 
 
 def path_launches(names, fn):
@@ -334,6 +468,66 @@ def check_smem(bundle, attn):
                                  f"{want} B")
 
 
+def check_hash_encode(pts, o, d, meta, tables, acfg, dev):
+    """The hash encode bit for bit against its plain version on the Phase-I
+    rows ``pts`` and on one decoupled chunk's rows (the first
+    DECOUPLED_RAYS_PER_CALL rays of the frame x ns_full), each timed warm
+    and cold with the card sampled beside; on the Phase-I rows also the
+    sector reckoning of both mappings.  Returns the Phase-I encoding and
+    the kernel's row (Phase-I rows, warm)."""
+    import torch
+    from repro_torch.core import scene
+    from repro_torch.kernels import hash_encode as HE
+
+    L, T, F = tables.shape
+    step = DECOUPLED_RAYS_PER_CALL
+    chunk, _, _ = scene.sample_points(o[:step], d[:step], acfg.ns_full)
+    chunk = chunk.reshape(-1, 3).contiguous()
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    enc_phase1 = row = None
+    for tag, x in (("Phase-I rows", pts), ("decoupled chunk rows", chunk)):
+        n = x.shape[0]
+
+        def kern():
+            return HE.hash_encode(x, meta, tables)
+
+        enc = kern()
+        enc_p, plain_ms = timed(lambda: HE.hash_encode_plain(x, meta, tables),
+                                dev, 1)
+        with SmiSampler(dev) as smi:
+            smi.wait_for_samples()
+            warm = timed_rounds(kern, dev)
+            cold = timed_rounds(kern, dev, flush=flush)
+        print(f"[kernel] hash_encode on the {tag} ({n} points x {L} levels): "
+              f"warm {spread(warm)} ms, cold (after a {FLUSH_BYTES >> 20} MiB "
+              f"flush) {spread(cold)} ms; {smi.summary()}", flush=True)
+        args = (enc, enc_p, sorted(warm)[len(warm) // 2], plain_ms)
+        kw = dict(flop=n * L * ENCODE_FLOP,
+                  nbytes=4 * (n * 3 + n * L * F + tables.numel()
+                              + meta.numel()), exact=True)
+        del enc_p
+        if row is not None:
+            check(f"hash_encode on the {tag}", *args, **kw)
+            continue
+        row = kernel_row("hash_encode", "hash_encode.cu",
+                         "src/repro/kernels/hash_encode.py:94", *args, **kw)
+        enc_phase1 = enc
+        # the bound counts each table byte once; the gathers touch these
+        # distinct sectors, each warp's counted once
+        for mapping, name in (("level", "level groups (this kernel)"),
+                              ("point", "point-major (the kernel it replaced)")):
+            sec = HE.warp_sectors(x, meta, F, mapping)
+            tot = int(sec.sum())
+            print(f"[kernel] hash_encode on the {tag}, {name}: its warps' "
+                  f"gathers touch {tot} distinct 32-B sectors ({tot / n:.2f} "
+                  f"a point; by level "
+                  f"{[round(v / n, 2) for v in sec.tolist()]}), "
+                  f"{1e3 * 32 * tot / PEAK_BYTES:.3f} ms at the memory rate "
+                  f"were none in L2", flush=True)
+    del flush, chunk
+    return enc_phase1, row
+
+
 def check_kernels(field, bundle, cam, dev, reps=3):
     """Each kernel against its plain version at the main path's shapes.
     Returns the kernel rows of the JSON line (launches filled in later)
@@ -366,20 +560,9 @@ def check_kernels(field, bundle, cam, dev, reps=3):
     def row(*args, **kw):
         rows.append(kernel_row(*args, **kw))
 
-    # ---- hash encode on the Phase-I samples
-    enc, ms = timed(lambda: HE.hash_encode(pts, meta, tables), dev, reps)
-    enc_p, plain_ms = timed(lambda: HE.hash_encode_plain(pts, meta, tables),
-                            dev, 1)
-    row("hash_encode", "hash_encode.cu", "src/repro/kernels/hash_encode.py:94",
-        enc, enc_p, ms, plain_ms, flop=n * L * ENCODE_FLOP,
-        nbytes=4 * (n * 3 + n * L * F + tables.numel() + meta.numel()))
-    # the bound counts each table byte once; the gathers touch a 32-B
-    # sector for each of a point's 8 corners at each level
-    sectors = n * L * 8
-    print(f"[kernel] hash_encode: its gathers touch {sectors} sectors of "
-          f"32 B, {1e3 * 32 * sectors / PEAK_BYTES:.3f} ms at the memory "
-          f"rate were none of them in L2", flush=True)
-    del enc_p
+    # ---- hash encode on the Phase-I samples, then a decoupled chunk's
+    enc, he_row = check_hash_encode(pts, o, d, meta, tables, acfg, dev)
+    rows.append(he_row)
 
     # ---- density MLP on the same rows
     wd, dims_d = res.density
@@ -517,22 +700,10 @@ def check_kernels(field, bundle, cam, dev, reps=3):
                                  "from the plain version")
         # work this run's data needs: valid samples of the chunks each
         # block ran (per live ray with per-ray exit), color on their anchors
-        chunks_b = out.reshape(nb, B, 8)[:, :, 5].cpu().numpy()
-        ray_c = out.reshape(nb, B, 8)[:, :, 6].cpu().numpy()
-        samples = anchors = 0
-        for bi in range(nb):
-            runs = ray_c[bi] if kw["per_ray_exit"] else chunks_b[bi]
-            for ci in range(int(runs.max())):
-                v = max(0, min(C, int(bud[bi]) - ci * C))
-                live = int((runs > ci).sum())
-                samples += live * v
-                anchors += live * -(-v // acfg.group)
-        flop = samples * (L * ENCODE_FLOP + fl_d["density_flops"])
-        if kw["with_color"]:
-            flop += anchors * fl_d["color_flops"]
-        nbytes = 4 * (2 * args[0].numel() + budgets.numel() + tables.numel()
-                      + wd.numel() + wc.numel() + out.numel()
-                      + (sh.numel() if kw["with_color"] else 0))
+        counters = out.reshape(nb, B, 8).cpu().numpy()
+        runs = counters[:, :, 6 if kw["per_ray_exit"] else 5]
+        samples, anchors, flop, nbytes = march_reckoning(
+            runs, bud, res, acfg, fl_d, kw["with_color"])
         work = f"{samples} samples" + (f", {anchors} anchors with color"
                                        if kw["with_color"] else "")
         print(f"[kernel] fused_march{tag}: {work}", flush=True)
@@ -584,24 +755,41 @@ def frame_blocks(fns, acfg, cam, dev):
 
 def time_frame_march(fns, acfg, cam, stats, dev, reps=3):
     """The fused march alone on the frame's own blocks and budgets, with
-    and without color; its chunk counts must be the frame's."""
+    and without color, each beside the bound of the work its chunk
+    counters say it needed; its chunk counts must be the frame's."""
     import torch
+    from repro_torch.core import mlp as mlp_lib
     from repro_torch.kernels import ops
 
     o_s, d_s, budgets = frame_blocks(fns, acfg, cam, dev)
+    fl_d = mlp_lib.flops_per_sample(fns.fused.net)
 
     def march(density_only):
         return ops.fused_march_blocks(fns.fused, acfg, o_s, d_s, budgets,
                                       density_only=density_only)
 
     out, ms = timed(lambda: march(False), dev, reps)
-    _, ms_density = timed(lambda: march(True), dev, reps)
+    out_d, ms_density = timed(lambda: march(True), dev, reps)
     same = (torch.equal(budgets, stats["budgets"])
             and torch.equal(out[3], stats["chunks_per_block"]))
     print(f"[frame] fused march alone on the frame's {budgets.shape[0]} "
           f"blocks (budgets from Phase I): {ms:.3f} ms, density only "
           f"{ms_density:.3f} ms; budgets and chunks as in the frame: {same}",
           flush=True)
+    for tag, o_m, t_ms, color in (("with color", out, ms, True),
+                                  ("density only", out_d, ms_density, False)):
+        runs = (o_m[4] if acfg.per_ray_early_exit
+                else o_m[3][:, None].expand(o_m[4].shape))
+        samples, anchors, flop, nbytes = march_reckoning(
+            runs.cpu().numpy(), budgets.cpu().numpy(), fns.fused, acfg, fl_d,
+            color)
+        b_ms, b_by = bound(flop, nbytes)
+        print(f"[frame] fused march alone, {tag}: {samples} samples "
+              f"(those within the budgets; the frame counts whole chunks, "
+              f"{stats['samples_processed']})"
+              f"{f', {anchors} anchors with color' if color else ''}; "
+              f"{t_ms:.3f} ms against a bound of {b_ms:.3f} ms ({b_by}, "
+              f"{100 * b_ms / t_ms:.0f} % of it)", flush=True)
     if not same:
         raise AssertionError("the frame's march, run alone, ran other chunks")
 
@@ -692,6 +880,40 @@ def run_frames(field, bundle, cam, dev):
     return launches, ref
 
 
+def report_device_time(what, fn, dev, top=6):
+    """One more call of ``fn`` under torch.profiler: its device time by
+    kernel, the hash encode's share and the device's idle share of the
+    call's wall time ("not measured" where the profiler sees no device
+    time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    sync(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name = {}           # the kernels' own events, not the host ops'
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CPU and evt.self_device_time_total:
+            by_name[evt.key] = evt.self_device_time_total / 1e3
+    busy = sum(by_name.values())
+    if busy == 0:
+        print(f"{what} under torch.profiler ({wall:.1f} ms): device time not "
+              f"measured (the profiler recorded none)", flush=True)
+        return
+    enc = sum(v for k, v in by_name.items() if "hash_encode_kernel" in k)
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    print(f"{what} under torch.profiler: {wall:.1f} ms wall, {busy:.1f} ms on "
+          f"the device (idle share {1 - busy / wall:.3f}); hash_encode "
+          f"{enc:.1f} ms ({enc / busy:.3f} of device time); heaviest "
+          f"{[(k[:60], round(v, 3)) for k, v in heavy]}", flush=True)
+
+
 def run_decoupled(field, bundle, cam, ref, dev, reps=3):
     """The §4.3 decoupled frame through the kernel field in ray chunks,
     then one volume_render launch on its kept samples.  Returns the
@@ -730,6 +952,7 @@ def run_decoupled(field, bundle, cam, ref, dev, reps=3):
     print(f"[decoupled] frame (render_decoupled in chunks of {step} rays, "
           f"then volume_render on R={R} S={S} A={A}): {ms_frame:.1f} ms; "
           f"launches {launches}", flush=True)
+    report_device_time("[decoupled] frame", frame, dev)
 
     err_f, ok_f = max_err(vr_rgb, rgb)
     print(f"[decoupled] volume_render rgb vs render_decoupled rgb: "

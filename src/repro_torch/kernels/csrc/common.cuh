@@ -42,41 +42,68 @@ __host__ __device__ inline int chain_floats(const Dims& D) {
   return s;
 }
 
+// A point's cell at one level of resolution ``res``: its base vertex,
+// clamped to the grid, and its fractions within the cell.
+struct Cell {
+  int bx, by, bz;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ Cell cell_of(float px, float py, float pz,
+                                        int res) {
+  const float fres = (float)res;
+  const float sx = px * fres, sy = py * fres, sz = pz * fres;
+  Cell q;
+  q.bx = min(max((int)floorf(sx), 0), res - 1);
+  q.by = min(max((int)floorf(sy), 0), res - 1);
+  q.bz = min(max((int)floorf(sz), 0), res - 1);
+  q.fx = sx - (float)q.bx;
+  q.fy = sy - (float)q.by;
+  q.fz = sz - (float)q.bz;
+  return q;
+}
+
+// Corner c = (c>>2, c>>1 & 1, c & 1) of cell q: its table row (dense
+// levels row-major with stride res+1; hashed levels Instant-NGP's
+// XOR-of-primes hash in wrapping uint32, mod ``rows``: a mask where rows
+// is a power of two, the same index in fewer instructions) and its
+// trilinear weight wx * wy * wz.
+__device__ __forceinline__ uint32_t corner_row(const Cell& q, int c, int res,
+                                               int dense, uint32_t rows) {
+  const uint32_t cx = (uint32_t)(q.bx + ((c >> 2) & 1)),
+                 cy = (uint32_t)(q.by + ((c >> 1) & 1)),
+                 cz = (uint32_t)(q.bz + (c & 1));
+  if (dense) {
+    const uint32_t s = (uint32_t)(res + 1);
+    return cx + s * (cy + s * cz);
+  }
+  const uint32_t h = (cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u);
+  return (rows & (rows - 1)) == 0 ? (h & (rows - 1)) : h % rows;
+}
+
+__device__ __forceinline__ float corner_weight(const Cell& q, int c) {
+  const float wx = (c >> 2) & 1 ? q.fx : 1.f - q.fx;
+  const float wy = (c >> 1) & 1 ? q.fy : 1.f - q.fy;
+  const float wz = c & 1 ? q.fz : 1.f - q.fz;
+  return wx * wy * wz;
+}
+
 // One level's trilinear encode of one point: out[f * stride], f < F.
-// Dense levels address row-major with stride res+1; hashed levels use
-// Instant-NGP's XOR-of-primes hash in wrapping uint32, mod ``rows`` (a
-// mask where rows is a power of two: the same index, fewer instructions).
 // The eight corners' rows are gathered together (F = 2 as one float2 per
 // corner), then each feature sums its corners in order c = 0 .. 7 from 0.
+// Where F is a constant at the call site, the feature loop unrolls, so an
+// ``out`` in registers stays there.
 __device__ __forceinline__ void encode_point_level(
     float px, float py, float pz, int res, int dense, uint32_t rows,
     const float* __restrict__ table, int F, float* __restrict__ out,
     int stride = 1) {
-  const float fres = (float)res;
-  const float sx = px * fres, sy = py * fres, sz = pz * fres;
-  const int bx = min(max((int)floorf(sx), 0), res - 1);
-  const int by = min(max((int)floorf(sy), 0), res - 1);
-  const int bz = min(max((int)floorf(sz), 0), res - 1);
-  const float fx = sx - (float)bx, fy = sy - (float)by, fz = sz - (float)bz;
-  const bool pow2 = (rows & (rows - 1)) == 0;
+  const Cell q = cell_of(px, py, pz, res);
   uint32_t idx[8];
   float w[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const int ox = (c >> 2) & 1, oy = (c >> 1) & 1, oz = c & 1;
-    const uint32_t cx = (uint32_t)(bx + ox), cy = (uint32_t)(by + oy),
-                   cz = (uint32_t)(bz + oz);
-    if (dense) {
-      const uint32_t s = (uint32_t)(res + 1);
-      idx[c] = cx + s * (cy + s * cz);
-    } else {
-      const uint32_t h = (cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u);
-      idx[c] = pow2 ? (h & (rows - 1)) : h % rows;
-    }
-    const float wx = ox ? fx : 1.f - fx;
-    const float wy = oy ? fy : 1.f - fy;
-    const float wz = oz ? fz : 1.f - fz;
-    w[c] = wx * wy * wz;
+    idx[c] = corner_row(q, c, res, dense, rows);
+    w[c] = corner_weight(q, c);
   }
   if (F == 2 && ((uintptr_t)table & 7) == 0) {
     float2 v[8];
@@ -93,6 +120,7 @@ __device__ __forceinline__ void encode_point_level(
     out[stride] = a1;
     return;
   }
+#pragma unroll
   for (int f = 0; f < F; ++f) {
     float acc = 0.f;
 #pragma unroll

@@ -11,7 +11,13 @@ groups per CTA, rows of a thread's register tile), ``flash_attention.cu``
 bf16 kernel and the CTAs an SM it is built for; ``kF32KB``,
 ``kF32MinCtas``: keys per tile and CTAs an SM of the fp32 one) and
 ``volume_render.cu`` (``kWarps``, ``kChunk``: warps per CTA and samples
-per staged chunk).  Every variant is built with the same nvcc flags into
+per staged chunk) and ``hash_encode.cu`` (``kGroupFloats``: floats of a
+work item's output, so levels a group; ``kLanesPerPoint``: lanes sharing
+a work item; the wrapper's ``GROUP_FLOATS`` and ``LANES_PER_POINT``
+mirror them while the variant runs; ``kStreamStores``,
+``kEvictLast``: the stores' and the table loads' cache hints;
+``kStagePoints``: points staged through shared memory).  Every variant
+is built with the same nvcc flags into
 ``kernels/build/variants/``, one nvcc each, all at once, and runs its
 group's cases: ``color_mlp`` and ``fused_field`` on the Phase-I rows of
 the 800x800 ``CONFIG`` frame (25,600 probe rays x 192 samples, random
@@ -19,7 +25,8 @@ weights from seed 8 as in ``chip_smoke.py``); gemma2-27b's attention over
 8,192 tokens (the global layer without softcap and the local layer, in
 the group's dtype); the volume render at the decoupled frame's shape
 (R 640,000 x S 192, A 96, group 2) on uniform random inputs from
-``SEED``.  Each prints its max abs error against the committed kernel (0
+``SEED``; the hash encode on the Phase-I rows and on the first decoupled
+chunk's rows (65,536 rays x 192) of that frame.  Each prints its max abs error against the committed kernel (0
 where the variant only regroups work; the fp32 attention's key tile
 changes its online softmax's rounding) and is timed with CUDA events (the
 mean of 10 launches after a warm-up) in two rounds, the second in reverse
@@ -28,7 +35,9 @@ name and power limit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib
 import json
 import re
 import shutil
@@ -68,6 +77,19 @@ GROUPS = {
         "16-key tiles, 3 CTAs an SM": {"kF32KB": 16, "kF32MinCtas": 3},
         "64-key tiles, 1 CTA an SM": {"kF32KB": 64, "kF32MinCtas": 1},
     }),
+    "hash_encode": ("hash_encode", "hash_encode.cu", {
+        "2 lanes a point, 4 levels a group, streaming stores, points "
+        "read directly (committed)": {},
+        "1 lane a point": {"kLanesPerPoint": 1},
+        "1 lane a point, points staged": {"kLanesPerPoint": 1,
+                                          "kStagePoints": 1},
+        "1 level a group": {"kGroupFloats": 2},
+        "2 levels a group": {"kGroupFloats": 4},
+        "8 levels a group": {"kGroupFloats": 16},
+        "plain stores": {"kStreamStores": 0},
+        "table loads L2::evict_last": {"kEvictLast": 1},
+        "points staged through shared memory": {"kStagePoints": 1},
+    }),
     "volume_render": ("volume_render", "volume_render.cu", {
         "2 warps, chunks of 16 samples (committed)": {},
         "1 warp, chunks of 16": {"kWarps": 1},
@@ -77,6 +99,29 @@ GROUPS = {
         "2 warps, chunks of 32": {"kChunk": 32},
     }),
 }
+
+
+# Tile constants a wrapper mirrors in Python: constant -> (wrapper module
+# under kernels/, attribute).
+MIRRORS = {"kGroupFloats": ("hash_encode", "GROUP_FLOATS"),
+           "kLanesPerPoint": ("hash_encode", "LANES_PER_POINT")}
+
+
+@contextlib.contextmanager
+def mirrored(consts: dict):
+    """The wrappers' mirrors of ``consts`` set while a variant runs."""
+    saved = []
+    for name, value in consts.items():
+        if name in MIRRORS:
+            mod = importlib.import_module(f"{__package__}.{MIRRORS[name][0]}")
+            saved.append((mod, MIRRORS[name][1],
+                           getattr(mod, MIRRORS[name][1])))
+            setattr(mod, MIRRORS[name][1], value)
+    try:
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
 
 
 def with_constants(text: str, fname: str, consts: dict) -> str:
@@ -117,13 +162,13 @@ def build(groups) -> dict:
     return out
 
 
-def phase_one_rows(dev):
-    """enc, sh, cin and the two packed chains on the Phase-I rows."""
+def frame_samples(dev):
+    """The field's fused-march resources (random weights from ``SEED``),
+    the 800x800 ``CONFIG`` frame's rays and its Phase-I probe samples:
+    (res, o, d, pts (N, 3), dirs (N, 3))."""
     from ..configs import ingp_asdr
-    from ..core import mlp as mlp_lib
     from ..core import scene
     from .. import params
-    from . import fused_mlp as FM
     from . import ops
 
     bundle = ingp_asdr.CONFIG
@@ -131,7 +176,7 @@ def phase_one_rows(dev):
         params.random_params(bundle.model, SEED, TABLE_SCALE), bundle.model,
         device=dev)
     cam = scene.look_at_camera(*bundle.image_hw, **CAMERA)
-    acfg, res = bundle.asdr, ops.FusedMarchResources(field)
+    acfg = bundle.asdr
     o, d = scene.camera_rays(cam, device=dev)
     st = acfg.probe_stride
     jj, ii = torch.meshgrid(torch.arange(0, cam.height, st, device=dev),
@@ -140,8 +185,19 @@ def phase_one_rows(dev):
     probe = (jj * cam.width + ii).reshape(-1)
     pts, _, _ = scene.sample_points(o[probe], d[probe], acfg.ns_full)
     dirs = torch.repeat_interleave(d[probe], acfg.ns_full, dim=0)
-    enc = ops.hash_encode(pts.reshape(-1, 3), res.tables, field.cfg.grid)
-    sh = mlp_lib.sh_encode(dirs, field.cfg.net.sh_degree).contiguous()
+    return (ops.FusedMarchResources(field), o, d,
+            pts.reshape(-1, 3).contiguous(), dirs)
+
+
+def phase_one_rows(dev):
+    """enc, sh, cin and the two packed chains on the Phase-I rows."""
+    from ..core import mlp as mlp_lib
+    from . import fused_mlp as FM
+    from . import hash_encode as HE
+
+    res, _, _, pts, dirs = frame_samples(dev)
+    enc = HE.hash_encode(pts, res.meta, res.tables)
+    sh = mlp_lib.sh_encode(dirs, res.net.sh_degree).contiguous()
     dout = FM.density_mlp(enc, *res.density)
     cin = torch.cat([dout[:, 1:], sh], 1).contiguous()
     return enc, sh, cin, res.density, res.color
@@ -155,6 +211,19 @@ def cases(group: str, dev) -> list:
         return [("color_mlp", lambda: FM.color_mlp(cin, wc, dc)),
                 ("fused_field",
                  lambda: FM.fused_field(enc, sh, wd, dd, wc, dc))]
+    if group == "hash_encode":
+        from ..configs import ingp_asdr
+        from ..core import scene
+        from . import hash_encode as HE
+        res, o, d, pts, _ = frame_samples(dev)
+        step = 1 << 16
+        chunk, _, _ = scene.sample_points(o[:step], d[:step],
+                                          ingp_asdr.CONFIG.asdr.ns_full)
+        chunk = chunk.reshape(-1, 3).contiguous()
+        return [(f"{x.shape[0]} {tag}",
+                 lambda x=x: HE.hash_encode(x, res.meta, res.tables))
+                for tag, x in (("Phase-I rows", pts),
+                               ("decoupled chunk rows", chunk))]
     rng = np.random.default_rng(SEED)
     if group == "volume_render":
         from . import volume_render as VR
@@ -215,8 +284,9 @@ def main(argv) -> int:
             lib, ptxas = libs[g, name]
             _build._libs[src] = lib
             for case, fn in calls[g]:
-                ms = time_ms(fn)
-                err = (fn().float() - want[g, case].float()).abs().max()
+                with mirrored(GROUPS[g][2][name]):
+                    ms = time_ms(fn)
+                    err = (fn().float() - want[g, case].float()).abs().max()
                 print(json.dumps({
                     "round": rnd, "group": g, "variant": name, "case": case,
                     "constants": GROUPS[g][2][name], "ms": ms,

@@ -20,6 +20,12 @@ from test_torch_gpu import KEY_TILE_CASES, direct_key_tiles
 
 # the reference kernel's own tolerance (tests/test_flash_attention.py)
 RTOL, ATOL = 2e-4, 2e-5
+# bf16 plain version against attend_full on the same bf16 values: atol and
+# a limit on ||got - want|| / ||want||, 2-3x the error at these shapes
+# (max 7.8e-3 at every output magnitude, half a bf16 step of the largest
+# outputs; norm 1.8-2.0e-3): the plain version rounds P to bf16 before
+# P.V and its output to bf16, the oracle neither.
+BF16_ATOL, BF16_REL = 2e-2, 5e-3
 SHAPES = {"gqa": (2, 256, 4, 2, 64), "mha": (1, 128, 4, 4, 32),
           "mqa": (1, 512, 8, 1, 64)}
 
@@ -30,6 +36,12 @@ def _qkv(B, S, H, KV, Dh, seed, dtype=np.float32):
     k = rng.normal(size=(B, S, KV, Dh)).astype(dtype)
     v = rng.normal(size=(B, S, KV, Dh)).astype(dtype)
     return q, k, v
+
+
+def _assert_bf16_close(got, want):
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=BF16_ATOL)
+    assert np.linalg.norm(got - want) <= BF16_REL * np.linalg.norm(want)
 
 
 def _oracle(q, k, v, window, cap):
@@ -67,8 +79,7 @@ def test_flash_plain_bf16_io():
     assert got.dtype == torch.bfloat16
     want = _oracle(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in bf),
                    0, 0.0)
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               rtol=3e-2, atol=3e-2)
+    _assert_bf16_close(got, want)
 
 
 def test_flash_wrapper_runs_the_plain_version_on_the_cpu():
@@ -146,8 +157,7 @@ def test_flash_plain_bf16_with_rounded_p_matches_attend_full(window, cap):
     assert got.dtype == torch.bfloat16
     want = _oracle(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in bf),
                    window, cap)
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               rtol=3e-2, atol=3e-2)
+    _assert_bf16_close(got, want)
 
 
 def test_flash_plain_bf16_rounds_p_before_pv():

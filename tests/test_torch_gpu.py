@@ -1,5 +1,7 @@
-"""The rebuilt kernels on the card: the density, march and volume-render
-kernels held to their plain versions bit for bit on small inputs, flash
+"""The rebuilt kernels on the card: the hash encode, density, march and
+volume-render kernels held to their plain versions bit for bit on small
+inputs (the hash encode at ragged point counts, feature widths and level
+counts, rows that are no power of two, a table off 8-B alignment), flash
 attention within its tolerances (fp32 and bf16, window, softcap, GQA
 ratios 1, 2 and 8, lengths off the tile grid), and the launchers asking
 for the shared memory (and, for flash attention, the tiles and grid) the
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import hash_encode as HE
 from repro_torch.kernels import fused_march as FMA
 from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels import volume_render as VR
@@ -159,3 +162,51 @@ def test_volume_render_launcher_asks_for_the_reckoned_shared_memory(cuda):
                         (1000, 10, 100)):
         assert VR.volume_render_launch_smem(S, A, group) == \
             VR.volume_render_smem_bytes(S, A, group)
+
+
+def _encode_inputs(n, F, L, rows, seed):
+    """Points in [-0.25, 1.25]^3 (some outside the cube) and (L, rows, F)
+    tables; levels at resolutions 4 .. 300, dense where (res+1)^3 fits."""
+    rng = np.random.default_rng(seed)
+    res = np.unique(np.geomspace(4, 300, L).astype(int))
+    res = np.concatenate([res, 300 + np.arange(L - len(res))])
+    meta = [[int(r), int((r + 1) ** 3 <= rows), rows] for r in res]
+    pts = rng.uniform(-0.25, 1.25, (n, 3)).astype(np.float32)
+    tables = rng.uniform(-3, 3, (L, rows, F)).astype(np.float32)
+    return (torch.from_numpy(pts), torch.tensor(meta, dtype=torch.int32),
+            torch.from_numpy(tables))
+
+
+@pytest.mark.parametrize("L", [5, 16])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_hash_encode_matches_plain(n, F, L, cuda):
+    """Point counts off the warp, every group width (F = 1: 8 levels a
+    group, so L = 5 is one ragged group; F = 2: 4; F = 4: 2; F = 8: 1)."""
+    pts, meta, tables = (t.to(cuda) for t in
+                         _encode_inputs(n, F, L, 1 << 12, n + F + L))
+    got = HE.hash_encode(pts, meta, tables)
+    assert torch.equal(got, HE.hash_encode_plain(pts, meta, tables))
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 6])
+def test_hash_encode_rows_not_a_power_of_two(F, cuda):
+    """Hashed rows taken mod 3,001 (not masked), F = 3 and 6 store
+    scalars, L = 7 leaves a ragged last group."""
+    pts, meta, tables = (t.to(cuda) for t in
+                         _encode_inputs(777, F, 7, 3001, F))
+    assert not all(meta[:, 1].tolist())
+    got = HE.hash_encode(pts, meta, tables)
+    assert torch.equal(got, HE.hash_encode_plain(pts, meta, tables))
+
+
+def test_hash_encode_table_off_8_byte_alignment(cuda):
+    """F = 2 tables 4 B past an 8-B boundary take the scalar loads."""
+    pts, meta, tables = (t.to(cuda) for t in
+                         _encode_inputs(1000, 2, 16, 1 << 12, 5))
+    flat = torch.zeros(tables.numel() + 1, device=cuda)
+    flat[1:] = tables.reshape(-1)
+    shifted = flat[1:].view(tables.shape)
+    assert shifted.data_ptr() % 8 == 4
+    want = HE.hash_encode_plain(pts, meta, tables)
+    assert torch.equal(HE.hash_encode(pts, meta, shifted), want)
