@@ -63,18 +63,44 @@ root of a checkout, on a machine with one NVIDIA H100.
    no-softcap settings; then at ``RAGGED_SEQ`` tokens, head_dim 64, H / KV
    1 and 8, in both dtypes, global and windowed with the softcap.
 
-Each phase's entry points run once with every launch count set to 0 just
-before, and the run fails unless each kernel of that path launched.
+6. ``[train]``: trains the paper-width NGP (``CONFIG.model``) on the card
+   with ``core/train.py: train_ngp`` on the lego scene: ``TRAIN_STEPS``
+   steps of 4,096 rays x 48 samples from 24 views of 200x200, lr 5e-3 on
+   the cosine schedule, autograd through the plain field; prints the
+   median ms a step after the first ``TRAIN_WARM_STEPS`` (each step ends
+   in a synchronize, as the loss is read every step), the loss at the
+   first and last step and the peak memory, and fails unless the loss
+   falls below ``TRAIN_LOSS_GATE`` of its first value with every trained
+   tensor finite; runs ``TRAIN_PROFILE_STEPS`` more steps under
+   ``torch.profiler`` (device time by kernel, kernels launched, idle
+   share).  Then renders the trained scene at the 800x800 view:
+   the analytic ground truth (512 samples), the fixed-192 frame through
+   the kernel field built from the trained field (chunks of 32,768 rays)
+   and the two-phase frame (kernel field, fused march), each timed on
+   the host clock around a synchronised second run; prints both PSNRs
+   against ground truth, the ASDR frame's against fixed-192, the gap, the
+   count histogram and budgets, the samples spent (Phase II plus the
+   probe) against 640,000 x 192, and the fixed-192 / ASDR time ratio
+   beside the paper's software-only GPU figure (Fig. 24, AS 1.84x), and
+   by count rung the share of pixels, of the ASDR frame's squared error
+   and of its excess over fixed-192's.  The
+   same frame on the plain field may differ from the kernel path's in at
+   most 0.1 % of count-map pixels and 0.1 dB of PSNR against ground
+   truth.
 
-The weights are random, drawn with numpy from ``SEED`` in the reference
-layout: Glorot-uniform MLPs and hash tables uniform(-TABLE_SCALE,
-TABLE_SCALE).  TABLE_SCALE = 30 makes the density chain's logits large, so
-the frame holds several rungs of the count ladder and most Phase-II
-blocks saturate before their budget (both asserted): the adaptive path and
-the early-exit path both run.
+Each phase's entry points run once with every launch count set to 0 just
+before, and the run fails unless each kernel of that path launched (for
+``[train]``, the two trained frames together).
+
+Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
+reference layout: Glorot-uniform MLPs and hash tables
+uniform(-TABLE_SCALE, TABLE_SCALE).  TABLE_SCALE = 30 makes the density
+chain's logits large, so the frame holds several rungs of the count
+ladder and most Phase-II blocks saturate before their budget (both
+asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
-``[decoupled]`` and ``[attention]``.  Prints one ``{"kernels": [...]}``
+``[decoupled]``, ``[attention]`` and ``[train]``.  Prints one ``{"kernels": [...]}``
 line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -111,6 +137,23 @@ PEAK_BF16_TC = 989e12
 # capability 9.0) on 132 SMs at the 1,980 MHz boost clock (data sheet).
 PEAK_SFU = 16 * 132 * 1.98e9
 FRAME_KERNELS = ("hash_encode", "density_mlp", "color_mlp", "fused_march")
+# The [train] phase: the paper-width NGP trained on the card on the lego
+# scene (24 views of 200x200, 4,096 rays x 48 samples a batch, lr 5e-3 on
+# the cosine schedule), then rendered at CAMERA.  A step is bound by the
+# host's launches (~4,800 kernels, the device idle ~80 % of the time) and
+# took 63-97 ms on an H100, so 800 steps stay within ~80 s of training.
+# The phase fails unless the loss falls below TRAIN_LOSS_GATE of its
+# first value (the reference's own gate, tests/test_ngp_train.py).
+TRAIN_STEPS = 800
+TRAIN = dict(scene="lego", steps=TRAIN_STEPS, batch_rays=4096, n_samples=48,
+             lr=5e-3, n_views=24, view_hw=(200, 200), seed=0, log_every=1)
+TRAIN_LOSS_GATE = 0.4
+TRAIN_WARM_STEPS = 10          # steps left out of the median step time
+TRAIN_PROFILE_STEPS = 20       # steps under torch.profiler after training
+GT_RAYS_PER_CALL = 1 << 14     # ground truth: 512 analytic samples a ray
+# The paper's software-only GPU figure for adaptive sampling alone (Fig.
+# 24, "AS"): a reading to print beside the card's ratio, not a target.
+PAPER_AS_SPEEDUP = 1.84
 DECOUPLED_KERNELS = ("hash_encode", "density_mlp", "color_mlp",
                      "volume_render")
 DECOUPLED_RAYS_PER_CALL = 1 << 16
@@ -725,16 +768,24 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def host_ms(fn, dev):
+    """(result, ms): host clock around one call that ends in a
+    synchronize."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
 def render_frame(fns, acfg, cam, dev):
     """(image, stats, ms) of one render_asdr_image call, host clock around
     work that ends in a synchronize."""
     from repro_torch.core import pipeline
 
-    sync(dev)
-    t0 = time.perf_counter()
-    img, st = pipeline.render_asdr_image(fns, acfg, cam, device=dev)
-    sync(dev)
-    return img, st, 1e3 * (time.perf_counter() - t0)
+    (img, st), ms = host_ms(
+        lambda: pipeline.render_asdr_image(fns, acfg, cam, device=dev), dev)
+    return img, st, ms
 
 
 def frame_blocks(fns, acfg, cam, dev):
@@ -823,11 +874,8 @@ def run_frames(field, bundle, cam, dev):
     print(f"[frame] kernel path, fused march: {ms_k:.1f} ms (first run); "
           f"launches {launches}", flush=True)
     _, _, ms_k2 = render_frame(fns_k, fused, cam, dev)
-    sync(dev)
-    t0 = time.perf_counter()
-    pipeline.probe_phase(fns_k, fused, cam, device=dev)
-    sync(dev)
-    ms_probe = 1e3 * (time.perf_counter() - t0)
+    _, ms_probe = host_ms(
+        lambda: pipeline.probe_phase(fns_k, fused, cam, device=dev), dev)
     img_r, st_r, ms_r = render_frame(fns_k, reference, cam, dev)
     img_p, st_p, ms_p = render_frame(fns_p, reference, cam, dev)
     print(f"[frame] kernel path, fused march (second run): {ms_k2:.1f} ms, "
@@ -880,11 +928,11 @@ def run_frames(field, bundle, cam, dev):
     return launches, ref
 
 
-def report_device_time(what, fn, dev, top=6):
+def report_device_time(what, fn, dev, top=6, share_of="hash_encode_kernel"):
     """One more call of ``fn`` under torch.profiler: its device time by
-    kernel, the hash encode's share and the device's idle share of the
-    call's wall time ("not measured" where the profiler sees no device
-    time)."""
+    kernel, the share of the kernels named ``share_of``, the kernels
+    launched and the device's idle share of the call's wall time ("not
+    measured" where the profiler sees no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -898,20 +946,176 @@ def report_device_time(what, fn, dev, top=6):
         sync(dev)
         wall = 1e3 * (time.perf_counter() - t0)
     by_name = {}           # the kernels' own events, not the host ops'
+    n_kernels = 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CPU and evt.self_device_time_total:
             by_name[evt.key] = evt.self_device_time_total / 1e3
+            n_kernels += evt.count
     busy = sum(by_name.values())
     if busy == 0:
         print(f"{what} under torch.profiler ({wall:.1f} ms): device time not "
               f"measured (the profiler recorded none)", flush=True)
         return
-    enc = sum(v for k, v in by_name.items() if "hash_encode_kernel" in k)
+    part = sum(v for k, v in by_name.items() if share_of in k)
     heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     print(f"{what} under torch.profiler: {wall:.1f} ms wall, {busy:.1f} ms on "
-          f"the device (idle share {1 - busy / wall:.3f}); hash_encode "
-          f"{enc:.1f} ms ({enc / busy:.3f} of device time); heaviest "
-          f"{[(k[:60], round(v, 3)) for k, v in heavy]}", flush=True)
+          f"the device (idle share {1 - busy / wall:.3f}), {n_kernels} "
+          f"kernels; {share_of} {part:.1f} ms ({part / busy:.3f} of device "
+          f"time); heaviest {[(k[:60], round(v, 3)) for k, v in heavy]}",
+          flush=True)
+
+
+def ground_truth(scene_field, cam, dev):
+    """The analytic scene's 512-sample render of ``cam``, in ray chunks."""
+    import torch
+    from repro_torch.core import scene
+    o, d = scene.camera_rays(cam, device=dev)
+    step = GT_RAYS_PER_CALL
+    rgb = torch.cat([scene.render_reference(scene_field, o[s:s + step],
+                                            d[s:s + step])[0]
+                     for s in range(0, o.shape[0], step)])
+    return rgb.reshape(cam.height, cam.width, 3)
+
+
+def profile_train_steps(cfg, model_cfg, field, scene_field, dev):
+    """``TRAIN_PROFILE_STEPS`` more steps from the trained weights, on one
+    batch drawn from the training views' rays (its duplicate corners set
+    the gather backward's time), under torch.profiler: the step's device
+    time by kernel, kernels launched and idle share."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import train
+
+    o, d, ref = train._make_view_rays(cfg, scene_field, dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    idx = torch.randint(0, o.shape[0], (cfg.batch_rays,), generator=gen,
+                        device=dev)
+    jitter = torch.rand((cfg.batch_rays, cfg.n_samples), generator=gen,
+                        device=dev)
+    opt = optim.AdamWConfig(lr=cfg.lr, b2=0.99, eps=1e-15)
+    step = train.make_train_step(cfg, model_cfg, opt)
+    state = {"params": field.params()}
+    state["opt"] = optim.adamw_init(state["params"], opt)
+
+    def steps():
+        for _ in range(TRAIN_PROFILE_STEPS):
+            state["params"], state["opt"], _ = step(
+                state["params"], state["opt"], o[idx], d[idx], ref[idx],
+                jitter, cfg.lr)
+
+    report_device_time(f"[train] {TRAIN_PROFILE_STEPS} steps", steps, dev,
+                       share_of="indexing_backward")
+
+
+def error_by_count(counts, img, fixed, gt) -> dict:
+    """{count: (share of pixels, share of the frame's squared error against
+    ground truth, share of its excess over fixed-192's)} of a frame."""
+    import torch
+    err = ((img - gt) ** 2).sum(-1).reshape(-1)
+    excess = err - ((fixed - gt) ** 2).sum(-1).reshape(-1)
+    out = {}
+    for c in torch.unique(counts).tolist():
+        m = counts == c
+        out[c] = tuple(round(float(x), 4) for x in (
+            m.float().mean(), err[m].sum() / err.sum(),
+            excess[m].sum() / excess.sum()))
+    return out
+
+
+def run_train(bundle, cam, dev, train_kw=TRAIN):
+    """Train the bundle's NGP on the card, then render the trained scene at
+    ``cam``: fixed-``ns_full`` and the two-phase frame through the kernel
+    field (built from the trained field: it packs the MLP weights when
+    built), held against the plain field's two-phase frame; the trained
+    frames' launches must show every kernel of FRAME_KERNELS."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import model, rendering, train
+    from repro_torch.kernels import ops
+
+    cfg = train.NGPTrainConfig(**train_kw)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    (field, _, scene_field, hist), wall = host_ms(
+        lambda: train.train_ngp(cfg, bundle.model, device=dev, verbose=False),
+        dev)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else float("nan"))
+    step_ms = 1e3 * np.diff([0.0] + [h[2] for h in hist])
+    first, last = hist[0][1], hist[-1][1]
+    print(f"[train] {cfg.steps} steps of {cfg.batch_rays} rays x "
+          f"{cfg.n_samples} samples on {cfg.n_views} views of "
+          f"{cfg.view_hw[0]}x{cfg.view_hw[1]} ({cfg.scene}): "
+          f"{np.median(step_ms[TRAIN_WARM_STEPS:]):.2f} ms a step (median "
+          f"after the first {TRAIN_WARM_STEPS}; first step "
+          f"{step_ms[0]:.1f} ms), {hist[-1][2]:.1f} s of steps, "
+          f"{wall / 1e3:.1f} s with the views; loss {first:.5f} -> "
+          f"{last:.5f} ({last / first:.3f}x); peak memory {peak:.2f} GiB",
+          flush=True)
+    finite = all(bool(torch.isfinite(b).all()) for b in field.buffers())
+    if not (last < TRAIN_LOSS_GATE * first and finite):
+        raise AssertionError(f"training: loss {first} -> {last} (gate "
+                             f"{TRAIN_LOSS_GATE}x), finite weights {finite}")
+    profile_train_steps(cfg, bundle.model, field, scene_field, dev)
+
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    ns, H, W = acfg.ns_full, cam.height, cam.width
+    gt = ground_truth(scene_field, cam, dev)
+    fns_k = ops.field_fns(field)
+    fns_p = model.field_fns(field)
+
+    def frames():
+        return (fixed_reference(fns_k, cam, ns, dev),
+                render_frame(fns_k, acfg, cam, dev))
+
+    (fixed, (img_k, st_k, ms_k1)), launches = path_launches(FRAME_KERNELS,
+                                                            frames)
+    _, ms_fixed = host_ms(lambda: fixed_reference(fns_k, cam, ns, dev), dev)
+    _, _, ms_k = render_frame(fns_k, acfg, cam, dev)
+    img_p, st_p, ms_p = render_frame(fns_p, acfg, cam, dev)
+    p_fixed = float(rendering.psnr(fixed, gt))
+    p_k = float(rendering.psnr(img_k, gt))
+    p_p = float(rendering.psnr(img_p, gt))
+    p_kf = float(rendering.psnr(img_k, fixed))
+    print(f"[train] trained frame {H}x{W}: fixed-{ns} through the kernel "
+          f"field (chunks of 32,768 rays) {ms_fixed:.1f} ms, PSNR "
+          f"{p_fixed:.4f} dB vs ground truth (512 samples); ASDR (kernel "
+          f"field, fused march) {ms_k:.1f} ms (first run {ms_k1:.1f}), PSNR "
+          f"{p_k:.4f} dB vs ground truth, {p_kf:.4f} dB vs fixed-{ns}; "
+          f"gap to fixed-{ns} {p_fixed - p_k:.4f} dB (the paper: ~0.1); "
+          f"launches {launches}", flush=True)
+    vals, nums = torch.unique(st_k["counts"], return_counts=True)
+    budgets = st_k["budgets"].cpu().numpy()
+    bv, bn = np.unique(budgets, return_counts=True)
+    chunks = st_k["chunks_per_block"].cpu().numpy()
+    early = int((chunks < -(-budgets // acfg.chunk)).sum())
+    spent = st_k["samples_processed"] + st_k["probe_samples"]
+    base = H * W * ns
+    print(f"[train] count histogram {dict(zip(vals.tolist(), nums.tolist()))}"
+          f"; budgets {bv.tolist()} x {bn.tolist()}; {early} of "
+          f"{len(chunks)} blocks exit early; samples {st_k['samples_processed']}"
+          f" + probe {st_k['probe_samples']} = {spent} of {H * W} x {ns} = "
+          f"{base} ({spent / base:.4f}); fixed-{ns} / ASDR frame time "
+          f"{ms_fixed / ms_k:.3f}x (the paper's software-only GPU figure, "
+          f"Fig. 24 AS: {PAPER_AS_SPEEDUP}x)", flush=True)
+    print(f"[train] by count: {error_by_count(st_k['counts'], img_k, fixed, gt)}",
+          flush=True)
+    diff = float((st_k["counts"] != st_p["counts"]).float().mean())
+    print(f"[train] plain field, same frame: {ms_p:.1f} ms, PSNR {p_p:.4f} "
+          f"dB vs ground truth; count-map share differing from the kernel "
+          f"path {diff:.3e}; PSNR gap {p_k - p_p:.4f} dB", flush=True)
+    if not (all(math.isfinite(x) for x in (p_fixed, p_k, p_p, p_kf))
+            and bool(torch.isfinite(img_k).all())
+            and bool(torch.isfinite(fixed).all())
+            and tuple(img_k.shape) == tuple(fixed.shape) == (H, W, 3)):
+        raise AssertionError("non-finite or misshapen trained frame")
+    if diff > MAX_COUNT_DIFF:
+        raise AssertionError(f"trained count maps differ in {diff:.3e} of "
+                             f"pixels (limit {MAX_COUNT_DIFF})")
+    if abs(p_k - p_p) > MAX_PSNR_DIFF:
+        raise AssertionError(f"trained PSNR gap {p_k - p_p:.4f} dB (limit "
+                             f"{MAX_PSNR_DIFF})")
 
 
 def run_decoupled(field, bundle, cam, ref, dev, reps=3):
@@ -1127,10 +1331,10 @@ def check_attention_ragged(dev):
                                          "plain version at a ragged shape")
 
 
-def run(dev, bundle, hw, attn, seq, reps=3):
-    """Phases 2-5 on ``dev`` at ``bundle``, image size ``hw``, attention
-    widths ``attn`` and ``seq`` tokens; returns the kernel rows of the JSON
-    line."""
+def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
+    """Phases 2-6 on ``dev`` at ``bundle``, image size ``hw``, attention
+    widths ``attn``, ``seq`` tokens and training ``train_kw``; returns the
+    kernel rows of the JSON line."""
     from repro_torch import params
     from repro_torch.core import scene
 
@@ -1142,6 +1346,7 @@ def run(dev, bundle, hw, attn, seq, reps=3):
     frame_launches, ref = run_frames(field, bundle, cam, dev)
     vr_row, vr_launches = run_decoupled(field, bundle, cam, ref, dev, reps)
     fa_row, fa_launches = run_attention(attn, seq, dev, reps)
+    run_train(bundle, cam, dev, train_kw)
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches, **fa_launches)
     for r in rows:

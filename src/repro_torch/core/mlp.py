@@ -8,9 +8,12 @@ the geometry feature, the color network reads [geo, SH(dir)].
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List
 
 import torch
+
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +44,33 @@ class MLPConfig:
 
 
 def flops_per_sample(cfg: MLPConfig) -> Dict[str, float]:
-    """2*fan_in*fan_out per matmul row, for each chain."""
+    """2*fan_in*fan_out per matmul row, for each chain, and the color
+    chain's share (the paper's 8 %:92 % split)."""
     def chain(sizes):
-        return float(sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:])))
-    return {"density_flops": chain(cfg.density_sizes()),
-            "color_flops": chain(cfg.color_sizes())}
+        return sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    d, c = chain(cfg.density_sizes()), chain(cfg.color_sizes())
+    return {"density_flops": float(d), "color_flops": float(c),
+            "color_fraction": c / (c + d)}
+
+
+def _dense_init(fan_in: int, fan_out: int, generator, device) -> torch.Tensor:
+    """Glorot-uniform (fan_in, fan_out) float32 weights."""
+    scale = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand((fan_in, fan_out), generator=generator, device=device)
+    return u * (2.0 * scale) - scale
+
+
+def init_mlps(cfg: MLPConfig, generator=None, device=None) -> Dict:
+    """{"density": [W...], "color": [W...]}, Glorot-uniform, on ``device``
+    (the GPU unless ``device="cpu"``), drawn from ``generator``."""
+    dev = resolve_device(device)
+
+    def chain(sizes):
+        return [_dense_init(a, b, generator, dev)
+                for a, b in zip(sizes[:-1], sizes[1:])]
+
+    return {"density": chain(cfg.density_sizes()),
+            "color": chain(cfg.color_sizes())}
 
 
 def _mlp_forward(ws, x, final_act=None):

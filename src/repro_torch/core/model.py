@@ -1,10 +1,16 @@
 """Instant-NGP neural field assembly + the baseline (paper's "original")
 renderer (``repro.core.model``).
 
-``NGPField`` is an ``nn.Module`` that holds the hash tables and MLP
-weights as buffers, in the reference layout: tables (L, T, F), weights
-(fan_in, fan_out).  ``paper_mlp=True`` sizes the color head so the
-density:color FLOP split matches the paper's 8%:92%.
+A field's parameters are the reference's dict
+``{"grid": (L, T, F), "mlps": {"density": [W...], "color": [W...]}}``
+with each W a (fan_in, fan_out) float32 matrix.  ``init_ngp`` draws one;
+``query_density`` / ``query_color`` / ``param_fns`` evaluate one, and
+autograd flows to its tensors, which is how ``train.py`` trains.
+``NGPField`` is an ``nn.Module`` that holds such a dict's tensors as
+buffers, detached, for rendering: the kernels take it
+(``kernels.ops.field_fns``) and have no backward.  ``paper_mlp=True``
+sizes the color head so the density:color FLOP split matches the
+paper's 8%:92%.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from . import hashgrid, mlp
+from . import hashgrid, mlp, scene
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,20 +52,62 @@ class NGPConfig:
                               max_resolution=256, paper_mlp=paper_mlp)
 
 
+def init_ngp(cfg: NGPConfig, generator=None, device=None) -> Dict:
+    """A params dict on ``device`` (the GPU unless ``device="cpu"``):
+    tables uniform(-1e-4, 1e-4), Glorot-uniform weights, drawn from
+    ``generator`` (a ``torch.Generator`` on that device)."""
+    return {"grid": hashgrid.init_hashgrid(cfg.grid, generator, device),
+            "mlps": mlp.init_mlps(cfg.net, generator, device)}
+
+
+def query_density(params: Dict, cfg: NGPConfig, points):
+    """points (N,3) -> (sigma (N,), geo (N, G)) — zero outside the cube."""
+    enc = hashgrid.encode(points, params["grid"], cfg.grid)
+    sigma, geo = mlp.density_apply(params["mlps"], enc)
+    inside = torch.all((points >= 0.0) & (points <= 1.0), dim=-1)
+    return torch.where(inside, sigma, 0.0), geo
+
+
+def query_color(params: Dict, cfg: NGPConfig, geo, dirs):
+    return mlp.color_apply(params["mlps"], geo, dirs, cfg.net.sh_degree)
+
+
+def query_field(params: Dict, cfg: NGPConfig, points, dirs):
+    sigma, geo = query_density(params, cfg, points)
+    return sigma, query_color(params, cfg, geo, dirs)
+
+
+def param_fns(params: Dict, cfg: NGPConfig):
+    """The plain-torch FieldFns of a params dict (the reference's
+    ``field_fns(params, cfg)``)."""
+    from .fields import FieldFns
+
+    return FieldFns(density=lambda pts: query_density(params, cfg, pts),
+                    color=lambda geo, dirs: query_color(params, cfg, geo, dirs))
+
+
 class NGPField(nn.Module):
-    """Tables and weights of one NGP as buffers (no gradients: the port's
-    first slice renders, it does not train)."""
+    """Tables and weights of one NGP as buffers, for rendering: no
+    gradients (``train.py`` trains a params dict and builds the field
+    from it)."""
 
     def __init__(self, cfg: NGPConfig, grid: torch.Tensor,
                  density: list, color: list):
         super().__init__()
         self.cfg = cfg
-        self.register_buffer("grid", grid.float().contiguous())
+        self.register_buffer("grid", grid.detach().float().contiguous())
         self.n_density, self.n_color = len(density), len(color)
         for i, w in enumerate(density):
-            self.register_buffer(f"density_{i}", w.float().contiguous())
+            self.register_buffer(f"density_{i}",
+                                 w.detach().float().contiguous())
         for i, w in enumerate(color):
-            self.register_buffer(f"color_{i}", w.float().contiguous())
+            self.register_buffer(f"color_{i}", w.detach().float().contiguous())
+
+    @classmethod
+    def from_params(cls, cfg: NGPConfig, params: Dict) -> "NGPField":
+        """The field of a params dict, on its tensors' device, detached."""
+        return cls(cfg, params["grid"], params["mlps"]["density"],
+                   params["mlps"]["color"])
 
     @property
     def density_weights(self):
@@ -70,21 +118,17 @@ class NGPField(nn.Module):
         return [getattr(self, f"color_{i}") for i in range(self.n_color)]
 
     def params(self) -> Dict:
-        """The reference's params pytree layout over this module's buffers."""
+        """The reference's params layout over this module's buffers."""
         return {"grid": self.grid,
                 "mlps": {"density": self.density_weights,
                          "color": self.color_weights}}
 
     def query_density(self, points):
         """points (N,3) -> (sigma (N,), geo (N, G)) — zero outside the cube."""
-        enc = hashgrid.encode(points, self.grid, self.cfg.grid)
-        sigma, geo = mlp.density_apply(self.params()["mlps"], enc)
-        inside = torch.all((points >= 0.0) & (points <= 1.0), dim=-1)
-        return torch.where(inside, sigma, 0.0), geo
+        return query_density(self.params(), self.cfg, points)
 
     def query_color(self, geo, dirs):
-        return mlp.color_apply(self.params()["mlps"], geo, dirs,
-                               self.cfg.net.sh_degree)
+        return query_color(self.params(), self.cfg, geo, dirs)
 
 
 def field_fns(field: NGPField):
@@ -103,3 +147,15 @@ def render_fixed(field: NGPField, origins, dirs, n_samples: int,
     return pipeline.render_fixed_fns(field_fns(field), origins, dirs,
                                      n_samples, jitter,
                                      white_background=white_background)
+
+
+def render_image(field: NGPField, cam, n_samples: int = 128,
+                 chunk: int = 4096, device=None):
+    """The fixed-``n_samples`` image of camera ``cam`` (H, W, 3), rendered
+    on ``device`` (the GPU unless ``device="cpu"``; the field's) in a host
+    loop over chunks of ``chunk`` rays."""
+    o, d = scene.camera_rays(cam, device=device)
+    rgb = torch.cat([render_fixed(field, o[s:s + chunk], d[s:s + chunk],
+                                  n_samples)[0]
+                     for s in range(0, o.shape[0], chunk)])
+    return rgb.reshape(cam.height, cam.width, 3)

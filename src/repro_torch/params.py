@@ -3,7 +3,9 @@
 The reference keeps a field's parameters as the pytree
 ``{"grid": (L, T, F), "mlps": {"density": [W...], "color": [W...]}}``
 with each W a (fan_in, fan_out) matrix.  ``from_jax_params`` turns that
-pytree, given as numpy arrays, into the port's ``NGPField``.
+pytree, given as numpy arrays, into the port's ``NGPField``;
+``to_jax_params`` turns a field back into it, so weights trained here
+render in the reference.
 ``load_cache_pickle`` reads the benchmark cache's pickle of
 ``(numpy params, NGPConfig)`` by attribute names: the reference's config
 classes are mapped onto the port's dataclasses of the same fields, so the
@@ -59,6 +61,17 @@ def from_jax_params(params_np: Dict, cfg, device=None) -> NGPField:
                      [t(w) for w in params_np["mlps"]["density"]],
                      [t(w) for w in params_np["mlps"]["color"]])
     return field.to(dev)
+
+
+def to_jax_params(field: NGPField) -> Dict:
+    """The reference's params pytree of a field, as float32 numpy arrays
+    (the inverse of ``from_jax_params``)."""
+    def a(t):
+        return t.detach().cpu().numpy().astype(np.float32, copy=True)
+
+    return {"grid": a(field.grid),
+            "mlps": {"density": [a(w) for w in field.density_weights],
+                     "color": [a(w) for w in field.color_weights]}}
 
 
 class _CacheUnpickler(pickle.Unpickler):

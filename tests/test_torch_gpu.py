@@ -5,19 +5,26 @@ counts, rows that are no power of two, a table off 8-B alignment), flash
 attention within its tolerances (fp32 and bf16, window, softcap, GQA
 ratios 1, 2 and 8, lengths off the tile grid), and the launchers asking
 for the shared memory (and, for flash attention, the tiles and grid) the
-wrappers reckon.  Marked ``gpu``: they skip without a CUDA device and run
+wrappers reckon.  Training steps on the card against the same steps on
+the CPU, and the kernel field of a trained field against its plain
+field.  Marked ``gpu``: they skip without a CUDA device and run
 on a machine with an H100 and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import optim
+from repro_torch.core import model, scene, train
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hash_encode as HE
 from repro_torch.kernels import fused_march as FMA
 from repro_torch.kernels import fused_mlp as FM
+from repro_torch.kernels import ops
 from repro_torch.kernels import volume_render as VR
 from test_torch_march_tiles import (CASES, PAPER_COLOR, PAPER_DENSITY,
                                     _march_inputs)
@@ -210,3 +217,84 @@ def test_hash_encode_table_off_8_byte_alignment(cuda):
     assert shifted.data_ptr() % 8 == 4
     want = HE.hash_encode_plain(pts, meta, tables)
     assert torch.equal(HE.hash_encode(pts, meta, shifted), want)
+
+
+# The paper's MLP widths (the tile kernels' shapes) over a small grid.
+TRAIN_MODEL = model.NGPConfig.make(log2_table_size=14, max_resolution=256,
+                                   paper_mlp=True)
+TRAIN_CFG = train.NGPTrainConfig(steps=3, batch_rays=256, n_samples=32,
+                                 n_views=2, view_hw=(24, 24), log_every=1)
+
+
+def test_training_steps_match_the_cpu(cuda):
+    """Three steps on the card and on the CPU from the same params, batch
+    indices and jitter, held as the CPU parity test holds them against
+    the reference: the first step's grads within 1e-4 of each leaf's
+    largest |g|, losses at rtol 1e-4, and at least 99.9 % of each leaf
+    within atol 1e-6 + rtol 1e-4, every entry within 3 lr (Adam moves an
+    entry whose gradient is within rounding of 0 by about lr either way;
+    the gather's backward sums in another order on the card)."""
+    cpu = torch.device("cpu")
+    params = model.init_ngp(TRAIN_MODEL, torch.Generator().manual_seed(0),
+                            device=cpu)
+    rays = train._make_view_rays(TRAIN_CFG, scene.make_scene("lego"), cpu)
+    rng = np.random.default_rng(0)
+    batches = [(torch.from_numpy(rng.integers(0, rays[0].shape[0], 256)),
+                torch.from_numpy(rng.uniform(size=(256, 32)).astype(np.float32)))
+               for _ in range(TRAIN_CFG.steps)]
+    opt = optim.AdamWConfig(lr=TRAIN_CFG.lr, b2=0.99, eps=1e-15)
+    sched = optim.cosine_schedule(TRAIN_CFG.lr, TRAIN_CFG.steps)
+    step = train.make_train_step(TRAIN_CFG, TRAIN_MODEL, opt)
+    out = []
+    for dev in (cpu, cuda):
+        p = optim.tree_map(lambda t: t.to(dev), params)
+        o, d, ref = (r.to(dev) for r in rays)
+        idx, jit = (t.to(dev) for t in batches[0])
+        _, grads = train.loss_and_grads(p, TRAIN_MODEL, o[idx], d[idx],
+                                        ref[idx], jit, TRAIN_CFG.n_samples)
+        state, losses = optim.adamw_init(p, opt), []
+        for i, (idx, jit) in enumerate(batches):
+            idx, jit = idx.to(dev), jit.to(dev)
+            p, state, loss = step(p, state, o[idx], d[idx], ref[idx], jit,
+                                  sched(i))
+            losses.append(float(loss))
+        out.append((optim.tree_leaves(grads), losses, optim.tree_leaves(p)))
+    (g_c, l_c, p_c), (g_g, l_g, p_g) = out
+    for got, want in zip(g_g, g_c):
+        assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+    for got, want in zip(p_g, p_c):
+        err = (got.cpu() - want).abs()
+        assert float((err <= 1e-6 + 1e-4 * want.abs()).float().mean()) >= 0.999
+        assert float(err.max()) <= 3 * TRAIN_CFG.lr
+
+
+def test_kernel_field_of_a_trained_field_matches_plain(cuda):
+    """``ops.field_fns`` packs a field's MLP weights by copy when it is
+    built (its tables by reference), so a kernel field is built from the
+    trained ``NGPField``: it then agrees with the plain field on the
+    trained weights (rtol 1e-4 / atol 1e-5), where one built from the
+    initial weights does not."""
+    field, _, _, hist = train.train_ngp(
+        dataclasses.replace(TRAIN_CFG, steps=20), TRAIN_MODEL, device=cuda,
+        verbose=False)
+    assert hist[-1][1] < hist[0][1]
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-0.1, 1.1, (5000, 3)).astype(
+        np.float32)).to(cuda)
+    dirs = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(5000, 3)).astype(np.float32)).to(cuda), dim=-1)
+    plain = model.field_fns(field)
+    sig_p, geo_p = plain.density(pts)
+    rgb_p = plain.color(geo_p, dirs)
+    kern = ops.field_fns(field)
+    sig_k, geo_k = kern.density(pts)
+    torch.testing.assert_close(sig_k, sig_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(geo_k, geo_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(kern.color(geo_p, dirs), rgb_p, rtol=1e-4,
+                               atol=1e-5)
+    init = model.init_ngp(TRAIN_MODEL, torch.Generator(cuda).manual_seed(
+        TRAIN_CFG.seed), device=cuda)
+    stale = ops.field_fns(model.NGPField.from_params(TRAIN_MODEL, init))
+    assert not torch.allclose(stale.color(geo_p, dirs), rgb_p, rtol=1e-4,
+                              atol=1e-5)
