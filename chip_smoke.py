@@ -17,8 +17,8 @@ root of a checkout, on a machine with one NVIDIA H100.
    the density -> color kernel pair) on the Phase-I probe samples of an
    800x800 frame (25,600 rays x 192), and the fused march on the frame's
    157 blocks of 4,096 rays with budgets drawn across the whole ladder
-   (plain; density-only and per-ray exit, whose plain versions run on the
-   first ``PLAIN_MARCH_BLOCKS`` blocks), then once more at a ragged shape
+   (plain, density-only and per-ray exit, each held on all 157 blocks),
+   then once more at a ragged shape
    (blocks of 1,000 rays, group 3, budgets below the chunk, per-ray exit).
    The density MLP, color MLP, fused field and fused march must match
    their plain versions at max abs error 0 (the color chains' plain
@@ -88,9 +88,28 @@ root of a checkout, on a machine with one NVIDIA H100.
    most 0.1 % of count-map pixels and 0.1 dB of PSNR against ground
    truth.
 
+7. ``[reuse]``: ASDR's cross-frame data reuse on the trained field:
+   ``render_asdr_image_cached`` over ``TRAJ_POSES`` 800x800 poses (theta
+   0.9 + 0.01 k, phi 0.55) through the kernel field with the fused march
+   and all tiers (warped probe maps, warped radiance, a shared
+   ``SceneBlockCache``).  Per frame: ms, rays marched, the reuse flags,
+   the warp's valid share, block hits and misses, samples processed and
+   reused, PSNR against a fresh ``render_asdr_image`` of the pose and
+   against the analytic ground truth; then the trajectory's ms beside the
+   same poses rendered fresh.  Gates: (a) frame 0, all tiers cold, equals
+   ``render_asdr_image`` bit for bit, image and count map; (b) the plain
+   field's trajectory has the same flags, rays marched and count maps
+   within 0.1 % and PSNRs against ground truth within 0.1 dB; (c) the
+   trajectory with a ``Tracer`` installed gives the same frames and stats
+   bit for bit, the reuse spans, and an export ``tools/check_trace.py``
+   passes; (d) a replay with radiance reuse off on the same block store
+   hits every block left resident and gives each frame the first pass
+   marched whole back bit for bit.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
-``[train]``, the two trained frames together).
+``[train]``, the two trained frames together; for ``[reuse]``, the
+trajectory).
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
 reference layout: Glorot-uniform MLPs and hash tables
@@ -100,8 +119,8 @@ ladder and most Phase-II blocks saturate before their budget (both
 asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
-``[decoupled]``, ``[attention]`` and ``[train]``.  Prints one ``{"kernels": [...]}``
-line, the card's name and power limit,
+``[decoupled]``, ``[attention]``, ``[train]`` and ``[reuse]``.  Prints one
+``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
@@ -154,6 +173,20 @@ GT_RAYS_PER_CALL = 1 << 14     # ground truth: 512 analytic samples a ray
 # The paper's software-only GPU figure for adaptive sampling alone (Fig.
 # 24, "AS"): a reading to print beside the card's ratio, not a target.
 PAPER_AS_SPEEDUP = 1.84
+# The [reuse] phase: ASDR's cross-frame data reuse over a camera trajectory
+# on the trained field: TRAJ_POSES poses at theta 0.9 + TRAJ_STEP k, phi
+# 0.55, 0.57 degrees and ~0.010 of eye travel a step.  Frames 1-3 warp
+# frame 0's radiance (under RadianceReuseConfig's 2 degrees / 0.04),
+# frame 4 is past it and marches afresh on a warped probe (under the
+# probe's 4 degrees / 0.08), and the probe's refresh_every = 8 re-probes
+# at frame 9.  The plain field's trajectory (gate (b)) takes most of the
+# phase, ~2.5 s a full frame; all TRAJ_POSES of it fit the phase's ~60 s.
+TRAJ_POSES = 12
+TRAJ_STEP = 0.01
+REUSE_FLAGS = ("probe_reused", "probe_skipped", "radiance_reused")
+REUSE_SPANS = ("probe.plan", "probe.execute", "probe.commit",
+               "warp.count_map", "warp.image", "radiance.plan",
+               "radiance.commit", "scenecache.store")
 DECOUPLED_KERNELS = ("hash_encode", "density_mlp", "color_mlp",
                      "volume_render")
 DECOUPLED_RAYS_PER_CALL = 1 << 16
@@ -171,10 +204,6 @@ TILE_KERNELS = {"hash_encode_kernel": "hash_encode",
                 "volume_render_kernel": "volume_render",
                 "flash_attention_bf16_kernel": "flash_attention",
                 "flash_attention_f32_kernel": "flash_attention"}
-# The march variants that are not the kernel row (density-only, per-ray
-# exit) are held against the plain version on their first blocks only (the
-# kernel still runs on all): the plain color chain emulates fmaf in float64.
-PLAIN_MARCH_BLOCKS = 40
 # The ragged march: blocks of a size that is not a multiple of 32, group
 # 3, budgets below the chunk among them, per-ray exit.
 RAGGED_B, RAGGED_GROUP = 1000, 3
@@ -718,25 +747,21 @@ def check_kernels(field, bundle, cam, dev, reps=3):
                 (" per_ray_early_exit", dict(with_color=True, per_ray_exit=True))]
     for tag, kw in variants:
         shv = sh if kw["with_color"] else None
-        # the plain version on every block in the kernel row, on the first
-        # PLAIN_MARCH_BLOCKS in the other two
-        nbp = nb if not tag else min(nb, PLAIN_MARCH_BLOCKS)
-
+        # every variant against the plain version on all the frame's blocks
         def kern():
             return FMA.fused_march(*args, shv, budgets, meta, tables, wd,
                                    dims_d, wc, dims_c, **common, **kw)
 
         def plain():
-            return FMA.fused_march_plain(
-                *(a[:nbp * B] for a in args),
-                shv[:nbp * B] if shv is not None else None, budgets[:nbp],
-                meta, tables, wd, dims_d, wc, dims_c, **common, **kw)
+            return FMA.fused_march_plain(*args, shv, budgets, meta, tables,
+                                         wd, dims_d, wc, dims_c, **common,
+                                         **kw)
 
         out, ms = timed(kern, dev, reps)
         out_p, plain_ms = timed(plain, dev, 1)
-        exact_c = torch.equal(out[:nbp * B, 5:7], out_p[:, 5:7])
+        exact_c = torch.equal(out[:, 5:7], out_p[:, 5:7])
         print(f"[kernel] fused_march{tag}: counters exact={exact_c} (plain on "
-              f"{nbp} of {nb} blocks); block chunks "
+              f"all {nb} blocks); block chunks "
               f"{out.reshape(nb, B, 8)[:, 0, 5].int().tolist()}", flush=True)
         if not exact_c:
             raise AssertionError(f"fused_march{tag}: chunk counters differ "
@@ -751,8 +776,8 @@ def check_kernels(field, bundle, cam, dev, reps=3):
                                        if kw["with_color"] else "")
         print(f"[kernel] fused_march{tag}: {work}", flush=True)
         if tag:
-            check(f"fused_march{tag}", out[:nbp * B], out_p, ms, plain_ms,
-                  flop, nbytes, exact=True)
+            check(f"fused_march{tag}", out, out_p, ms, plain_ms, flop, nbytes,
+                  exact=True)
         else:
             row("fused_march", "fused_march.cu",
                 "src/repro/kernels/fused_march.py:329", out, out_p, ms,
@@ -1116,6 +1141,219 @@ def run_train(bundle, cam, dev, train_kw=TRAIN):
     if abs(p_k - p_p) > MAX_PSNR_DIFF:
         raise AssertionError(f"trained PSNR gap {p_k - p_p:.4f} dB (limit "
                              f"{MAX_PSNR_DIFF})")
+    return field, scene_field
+
+
+def reuse_trajectory(fns, acfg, cams, fc, dev):
+    """[(image, stats, ms)] of render_asdr_image_cached over ``cams`` with
+    the reuse state ``fc``, host clock around each synchronised call."""
+    from repro_torch import framecache
+
+    return [(*out, ms) for out, ms in (
+        host_ms(lambda: framecache.render_asdr_image_cached(
+            fns, acfg, cam, fc, device=dev), dev) for cam in cams)]
+
+
+def reuse_cache():
+    """All three reuse tiers at their defaults, the scene-space block tier
+    a fresh SceneBlockCache at its default budget."""
+    from repro_torch import framecache, scenecache
+    return framecache.make_frame_cache(
+        scene_cache=scenecache.SceneBlockCache(), scene_id="lego")
+
+
+def same_stats(a, b) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+
+
+def replay_hits(store, fns, acfg, cams, dev):
+    """Gate (d): the trajectory again with radiance reuse off on ``store``,
+    every lookup logged as (key resident after the first pass, resident
+    just before the lookup, hit).  Returns (frames, log)."""
+    from repro_torch import framecache
+
+    first, log, lookup = set(store._entries), [], store.lookup
+
+    def logged(key, count_miss=True):
+        before = key in store._entries
+        out = lookup(key, count_miss)
+        log.append((key in first, before, out is not None))
+        return out
+
+    store.lookup = logged
+    try:
+        frames = reuse_trajectory(fns, acfg, cams, framecache.make_frame_cache(
+            radiance_cfg=None, scene_cache=store, scene_id="lego"), dev)
+    finally:
+        del store.lookup
+    return frames, log
+
+
+def reuse_host_costs(fns, acfg, cam, cfg, dev):
+    """The host's share of a frame the block store misses, on the frame's
+    own blocks: the sorted rays' copy to the host, their block keys, and
+    the march outputs' copy to the host and stores (ms each)."""
+    from repro_torch.kernels import ops
+    from repro_torch.scenecache import SceneBlockCache, block_keys
+
+    o_s, d_s, budgets = frame_blocks(fns, acfg, cam, dev)
+    host, ms_copy = host_ms(lambda: [t.cpu().numpy()
+                                     for t in (o_s, d_s, budgets)], dev)
+    keys, ms_keys = host_ms(lambda: block_keys(cfg, "lego", acfg, *host), dev)
+    out = ops.fused_march_blocks(fns.fused, acfg, o_s, d_s, budgets)
+    store = SceneBlockCache(cfg)
+
+    def stores():
+        rgb, acc, dep, ch = (t.cpu().numpy() for t in out[:4])
+        for j, (k, cell) in enumerate(keys):
+            store.store(k, cell, rgb[j], acc[j], dep[j], int(ch[j]))
+
+    _, ms_store = host_ms(stores, dev)
+    print(f"[reuse] host work of a missed frame ({len(keys)} blocks): rays "
+          f"to the host {ms_copy:.1f} ms, block keys {ms_keys:.1f} ms, "
+          f"outputs to the host and stores {ms_store:.1f} ms", flush=True)
+
+
+def run_reuse(field, scene_field, bundle, dev, hw, poses=TRAJ_POSES):
+    """The cross-frame reuse path on the trained field: the trajectory
+    through the kernel field (fused march) with all tiers, each frame
+    against a fresh render_asdr_image of its pose and the analytic ground
+    truth, then gates (a)-(d).  Returns the trajectory's launches."""
+    import dataclasses
+    import json
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import model, rendering, scene
+    from repro_torch.kernels import ops
+    sys.path.insert(0, str(ROOT / "tools"))
+    import check_trace
+
+    t0 = time.perf_counter()
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    cams = [scene.look_at_camera(hw[0], hw[1], theta=CAMERA["theta"]
+                                 + TRAJ_STEP * k, phi=CAMERA["phi"])
+            for k in range(poses)]
+    fns_k, fns_p = ops.field_fns(field), model.field_fns(field)
+    fc = reuse_cache()
+    traj, launches = path_launches(FRAME_KERNELS, lambda: reuse_trajectory(
+        fns_k, acfg, cams, fc, dev))
+    fresh = [render_frame(fns_k, acfg, cam, dev) for cam in cams]
+    gts = [ground_truth(scene_field, cam, dev) for cam in cams]
+    print(f"[reuse] {poses} poses of {hw[0]}x{hw[1]} at theta "
+          f"{CAMERA['theta']} + {TRAJ_STEP} k, phi {CAMERA['phi']}, kernel "
+          f"field, fused march, all tiers (SceneBlockCache budget "
+          f"{fc.scene.cfg.byte_budget >> 20} MiB); launches {launches}",
+          flush=True)
+    for k, ((img, st, ms), (f_img, _, f_ms), gt) in enumerate(
+            zip(traj, fresh, gts)):
+        print(f"[reuse] frame {k}: {ms:.1f} ms (fresh {f_ms:.1f}); rays "
+              f"marched {st['rays_marched']} of {st['rays_total']}; "
+              f"{', '.join(f'{f} {st[f]}' for f in REUSE_FLAGS)}; warp valid "
+              f"{st['warp_valid_fraction']:.4f}; scene blocks "
+              f"{st['scene_block_hits']} hit / {st['scene_block_misses']} "
+              f"missed; samples processed {st['samples_processed']}, reused "
+              f"{st['samples_reused']}, probe {st['probe_samples']}; PSNR vs "
+              f"fresh {float(rendering.psnr(img, f_img)):.4f} dB, vs ground "
+              f"truth {float(rendering.psnr(img, gt)):.4f} dB (fresh "
+              f"{float(rendering.psnr(f_img, gt)):.4f})", flush=True)
+    total, total_f = sum(t[2] for t in traj), sum(f[2] for f in fresh)
+    print(f"[reuse] trajectory {total:.1f} ms against {total_f:.1f} ms "
+          f"rendered fresh ({total_f / total:.3f}x); rays marched "
+          f"{sum(t[1]['rays_marched'] for t in traj)} of "
+          f"{sum(t[1]['rays_total'] for t in traj)}; scene cache "
+          f"{fc.scene.stats()}", flush=True)
+    reuse_host_costs(fns_k, acfg, cams[0], fc.scene.cfg, dev)
+    if not all(bool(torch.isfinite(t[0]).all())
+               and tuple(t[0].shape) == (hw[0], hw[1], 3) for t in traj):
+        raise AssertionError("[reuse]: non-finite or misshapen frame")
+    a_ok = (torch.equal(traj[0][0], fresh[0][0])
+            and torch.equal(traj[0][1]["counts"], fresh[0][1]["counts"]))
+    print(f"[reuse] gate (a): frame 0, all tiers cold, bit-equal to "
+          f"render_asdr_image (image and count map): {a_ok}", flush=True)
+    if not a_ok:
+        raise AssertionError("[reuse] gate (a): the cold frame differs from "
+                             "render_asdr_image")
+
+    # (b) the plain field's trajectory against the kernel field's
+    plain = reuse_trajectory(fns_p, acfg, cams, reuse_cache(), dev)
+    worst = [0.0, 0.0, 0.0]
+    flags_eq = True
+    for (img, st, _), (img_p, st_p, _), gt in zip(traj, plain, gts):
+        flags_eq &= all(st[f] == st_p[f] for f in REUSE_FLAGS)
+        worst[0] = max(worst[0], abs(st["rays_marched"] - st_p["rays_marched"])
+                       / st["rays_total"])
+        if st["counts"] is not None and st_p["counts"] is not None:
+            worst[1] = max(worst[1], float(
+                (st["counts"] != st_p["counts"]).float().mean()))
+        worst[2] = max(worst[2], abs(float(rendering.psnr(img, gt))
+                                     - float(rendering.psnr(img_p, gt))))
+    print(f"[reuse] gate (b): plain field, same trajectory "
+          f"({sum(t[2] for t in plain):.1f} ms): flags equal {flags_eq}; "
+          f"worst rays-marched gap {worst[0]:.3e} of the rays, count-map "
+          f"share {worst[1]:.3e}, PSNR gap vs ground truth {worst[2]:.4f} "
+          f"dB", flush=True)
+    if not (flags_eq and worst[0] <= MAX_COUNT_DIFF
+            and worst[1] <= MAX_COUNT_DIFF and worst[2] <= MAX_PSNR_DIFF):
+        raise AssertionError("[reuse] gate (b): the plain field's trajectory "
+                             "differs from the kernel field's")
+    del plain
+
+    # (c) the same trajectory with a tracer installed
+    tracer = obs.Tracer(obs.TraceConfig())
+    obs.install(tracer)
+    try:
+        traced = reuse_trajectory(fns_k, acfg, cams, reuse_cache(), dev)
+    finally:
+        obs.uninstall(tracer)
+    tracer.drain()
+    c_ok = all(torch.equal(a[0], b[0]) and same_stats(a[1], b[1])
+               for a, b in zip(traj, traced))
+    by_name = {}
+    for sp in tracer.spans:
+        n, ms = by_name.get(sp.name, (0, 0.0))
+        by_name[sp.name] = (n + 1, ms + sp.dur_ms)
+    export = json.loads(json.dumps(obs.export.chrome_trace(
+        tracer.spans, tracer.export_origin(), tracer.dropped), default=str))
+    bad = check_trace.validate(export)
+    missing = [n for n in REUSE_SPANS if n not in by_name]
+    print(f"[reuse] gate (c): traced trajectory bit-identical (frames and "
+          f"stats) {c_ok} ({sum(t[2] for t in traced):.1f} ms); spans "
+          f"{ {n: (c, round(ms, 1)) for n, (c, ms) in by_name.items()} }; "
+          f"{len(export['traceEvents'])} events exported, "
+          f"{len(bad)} schema findings; missing spans {missing}", flush=True)
+    if not c_ok or bad or missing:
+        raise AssertionError(f"[reuse] gate (c): traced run differs "
+                             f"({not c_ok}), export {bad[:3]}, missing "
+                             f"spans {missing}")
+    del traced
+
+    # (d) replay without radiance reuse on the same block store
+    replay, log = replay_hits(fc.scene, fns_k, acfg, cams, dev)
+    kept = sum(1 for first, before, _ in log if first and before)
+    hits = sum(1 for _, _, hit in log if hit)
+    whole = [k for k, t in enumerate(traj)
+             if t[1]["rays_marched"] == t[1]["rays_total"]]
+    back = [k for k in whole if torch.equal(replay[k][0], traj[k][0])
+            and torch.equal(replay[k][1]["counts"], traj[k][1]["counts"])]
+    d_ok = (all(before == hit for _, before, hit in log) and kept > 0
+            and hits == sum(r[1]["scene_block_hits"] for r in replay)
+            and back == whole)
+    print(f"[reuse] gate (d): replay without radiance reuse "
+          f"({sum(r[2] for r in replay):.1f} ms; per frame "
+          f"{[round(r[2], 1) for r in replay]} ms, block hits "
+          f"{[r[1]['scene_block_hits'] for r in replay]}): {len(log)} "
+          f"lookups, {hits} hits, {kept} of them blocks the first pass left "
+          f"resident; every resident block hit: "
+          f"{all(b == h for _, b, h in log)}; whole-march frames {whole} "
+          f"bit-equal: {back}", flush=True)
+    if not d_ok:
+        raise AssertionError("[reuse] gate (d): the replay missed a resident "
+                             "block or changed a frame")
+    print(f"[reuse] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 def run_decoupled(field, bundle, cam, ref, dev, reps=3):
@@ -1332,7 +1570,7 @@ def check_attention_ragged(dev):
 
 
 def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
-    """Phases 2-6 on ``dev`` at ``bundle``, image size ``hw``, attention
+    """Phases 2-7 on ``dev`` at ``bundle``, image size ``hw``, attention
     widths ``attn``, ``seq`` tokens and training ``train_kw``; returns the
     kernel rows of the JSON line."""
     from repro_torch import params
@@ -1346,7 +1584,8 @@ def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
     frame_launches, ref = run_frames(field, bundle, cam, dev)
     vr_row, vr_launches = run_decoupled(field, bundle, cam, ref, dev, reps)
     fa_row, fa_launches = run_attention(attn, seq, dev, reps)
-    run_train(bundle, cam, dev, train_kw)
+    field_t, scene_t = run_train(bundle, cam, dev, train_kw)
+    run_reuse(field_t, scene_t, bundle, dev, hw)
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches, **fa_launches)
     for r in rows:

@@ -6,12 +6,14 @@ the same (sigma, color) samples at reduced counts ``ns_i`` by stride
 subsampling, picks the smallest ``ns_i`` whose difficulty ``rd_i`` (Eq. 3)
 is ``<= delta`` and interpolates the counts bilinearly to every pixel.
 Phase II sorts rays by count into homogeneous blocks (stable sort, as the
-reference's ``argsort``).
+reference's ``argsort``).  ``pose_distance``, ``dilate_count_map`` and
+``reuse_dilation_radius`` serve cross-frame reuse (framecache/).
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import rendering, scene
@@ -109,6 +111,65 @@ def sort_rays_into_blocks(counts, block_size: int):
     order = torch.argsort(counts, stable=True)
     budgets = counts[order].reshape(-1, block_size).max(dim=1).values
     return order.to(torch.int32), budgets
+
+
+def pose_distance(cam_a, cam_b) -> Tuple[float, float]:
+    """(relative-rotation angle [rad], origin translation) between cameras.
+
+    The angle is the full relative-rotation angle (geodesic on SO(3)), so
+    an in-plane roll counts.  Host numpy in float64, as the reference.
+    """
+    ra = np.asarray(cam_a.c2w_rot, np.float64)
+    rb = np.asarray(cam_b.c2w_rot, np.float64)
+    # rotation angle of ra^T rb: cos = (trace - 1) / 2
+    cos = float(np.clip((np.trace(ra.T @ rb) - 1.0) * 0.5, -1.0, 1.0))
+    angle = float(np.arccos(cos))
+    trans = float(np.linalg.norm(
+        np.asarray(cam_a.origin) - np.asarray(cam_b.origin)))
+    return angle, trans
+
+
+def dilate_count_map(counts, hw: Tuple[int, int], radius: int,
+                     border_fill: int | None = None):
+    """Pixelwise max-filter of a count map (H*W,): separable max over rows
+    then columns with edge padding, the conservative margin for
+    cross-frame reuse.  With ``border_fill`` the radius-wide border band
+    is raised to at least that count (content entering from off-screen)."""
+    if radius <= 0:
+        return counts
+    H, W = hw
+    g = counts.reshape(H, W)
+    k = 2 * radius + 1
+    gp = torch.cat([g[:1].expand(radius, W), g, g[-1:].expand(radius, W)])
+    g = torch.stack([gp[i:i + H] for i in range(k)]).max(dim=0).values
+    gp = torch.cat([g[:, :1].expand(H, radius), g,
+                    g[:, -1:].expand(H, radius)], dim=1)
+    g = torch.stack([gp[:, i:i + W] for i in range(k)]).max(dim=0).values
+    if border_fill is not None:
+        yy, xx = torch.meshgrid(torch.arange(H, device=g.device),
+                                torch.arange(W, device=g.device),
+                                indexing="ij")
+        border = ((yy < radius) | (yy >= H - radius)
+                  | (xx < radius) | (xx >= W - radius))
+        g = torch.where(border, torch.clamp(g, min=border_fill), g)
+    return g.reshape(H * W)
+
+
+def reuse_dilation_radius(cam, angle: float, trans: float,
+                          near: float, margin: float = 1.5) -> int:
+    """Worst-case pixel shift between two poses, as a dilation radius.
+
+    A rotation by ``angle`` moves a pixel at image radius r by at most
+    ``angle * (focal^2 + r^2) / focal`` (r at the image corner), a
+    translation moves content at depth ``near`` by ``trans / near *
+    focal``.  Shifts under half a pixel round to 0.  Unclamped: callers
+    treat a radius above their cap as a miss.
+    """
+    focal = cam.focal
+    r_corner2 = (cam.width * 0.5) ** 2 + (cam.height * 0.5) ** 2
+    rot_px = angle * (focal * focal + r_corner2) / max(focal, 1e-6)
+    px = rot_px + (trans / max(near, 1e-6)) * focal
+    return max(int(np.ceil(margin * px - 0.5)), 0)
 
 
 def compute_savings(counts, ns_full: int) -> dict:

@@ -297,3 +297,18 @@ def render_asdr_image(fns: FieldFns, acfg: ASDRConfig, cam,
     stats["phase2_fraction_of_baseline"] = (
         stats["samples_processed"] / stats["baseline_samples"])
     return img, stats
+
+
+# ``ProbeCache`` / ``ProbeReuseConfig`` / ``probe_phase_cached`` live in
+# framecache/probe.py; the lazy module __getattr__ (PEP 562) keeps the
+# reference's import path ``core.pipeline.ProbeCache`` without a
+# core -> framecache import cycle at module load.
+_FRAMECACHE_REEXPORTS = ("ProbeCache", "ProbeReuseConfig",
+                         "probe_phase_cached")
+
+
+def __getattr__(name):
+    if name in _FRAMECACHE_REEXPORTS:
+        from ..framecache import probe as _probe
+        return getattr(_probe, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

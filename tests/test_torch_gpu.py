@@ -7,7 +7,10 @@ ratios 1, 2 and 8, lengths off the tile grid), and the launchers asking
 for the shared memory (and, for flash attention, the tiles and grid) the
 wrappers reckon.  Training steps on the card against the same steps on
 the CPU, and the kernel field of a trained field against its plain
-field.  Marked ``gpu``: they skip without a CUDA device and run
+field.  The fused march over a subset of a frame's blocks, in any order,
+against those blocks' rows of the full launch, and a short reuse
+trajectory on the kernel and plain fields.  Marked ``gpu``: they skip
+without a CUDA device and run
 on a machine with an H100 and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -18,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import optim
-from repro_torch.core import model, scene, train
+from repro_torch import framecache, optim, params, scenecache
+from repro_torch.configs import ingp_asdr
+from repro_torch.core import model, pipeline, rendering, scene, train
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hash_encode as HE
 from repro_torch.kernels import fused_march as FMA
@@ -298,3 +302,89 @@ def test_kernel_field_of_a_trained_field_matches_plain(cuda):
     stale = ops.field_fns(model.NGPField.from_params(TRAIN_MODEL, init))
     assert not torch.allclose(stale.color(geo_p, dirs), rgb_p, rtol=1e-4,
                               atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def paper_field():
+    """The paper-config NGP with random weights on the card (tables
+    uniform(-30, 30), as the smoke's: a count map over several rungs and
+    blocks that exit early), and the 800x800 view's blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build and run only "
+                    "there)")
+    cuda = torch.device("cuda")
+    bundle = ingp_asdr.CONFIG
+    field = params.from_jax_params(params.random_params(bundle.model, 8, 30.0),
+                                   bundle.model, device=cuda)
+    return field, bundle
+
+
+@pytest.mark.parametrize("density_only", [False, True])
+@pytest.mark.parametrize("per_ray", [False, True])
+def test_fused_march_block_subsets_match_the_full_launch(paper_field,
+                                                         density_only,
+                                                         per_ray):
+    """What scenecache/render.py relies on: the fused march gives a block
+    the same rows, to the bit, whatever other blocks share its launch, and
+    in whatever order they come."""
+    field, bundle = paper_field
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused",
+                               per_ray_early_exit=per_ray)
+    fns = ops.field_fns(field)
+    cam = scene.look_at_camera(*bundle.image_hw, theta=0.9, phi=0.55)
+    o, d = scene.camera_rays(cam)
+    counts, _ = pipeline.probe_phase(fns, acfg, cam)
+    o, d, counts, _, _ = pipeline.pad_rays_to_blocks(acfg, o, d, counts)
+    order, budgets = pipeline.block_sort(acfg, counts)
+    B = acfg.block_size
+    o_s, d_s = o[order].reshape(-1, B, 3), d[order].reshape(-1, B, 3)
+    nb = budgets.shape[0]
+    full = ops.fused_march_blocks(fns.fused, acfg, o_s, d_s, budgets,
+                                  density_only)
+    assert len(set(budgets.tolist())) >= 2
+    for sub in (list(range(0, nb, 3)), list(range(nb - 1, -1, -2)), [nb - 1],
+                [5, 0, 77, 76, 140]):
+        at = torch.tensor(sub, device=o.device)
+        part = ops.fused_march_blocks(fns.fused, acfg, o_s[at], d_s[at],
+                                      budgets[at], density_only)
+        for got, want in zip(part, full):
+            assert torch.equal(got, want[at])
+
+
+def test_reuse_trajectory_kernel_matches_plain(paper_field):
+    """Five 800x800 poses, 0.57 degrees a step, through every reuse tier
+    on the kernel field (fused march) and on the plain field: equal reuse
+    flags, rays marched and count maps within 0.1 %, PSNRs against the
+    kernel field's fixed-192 render of each pose within 0.1 dB; frame 0
+    equals render_asdr_image bit for bit."""
+    field, bundle = paper_field
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    H, W = bundle.image_hw
+    cams = [scene.look_at_camera(H, W, theta=0.9 + 0.01 * k, phi=0.55)
+            for k in range(5)]
+    fns_k, fns_p = ops.field_fns(field), model.field_fns(field)
+    runs = []
+    for fns in (fns_k, fns_p):
+        fc = framecache.make_frame_cache(
+            scene_cache=scenecache.SceneBlockCache(), scene_id="random")
+        runs.append([framecache.render_asdr_image_cached(fns, acfg, cam, fc)
+                     for cam in cams])
+    ref0, st0 = pipeline.render_asdr_image(fns_k, acfg, cams[0])
+    assert torch.equal(runs[0][0][0], ref0)
+    assert torch.equal(runs[0][0][1]["counts"], st0["counts"])
+    assert [s["radiance_reused"] for _, s in runs[0]] == [
+        False, True, True, True, False]
+    for cam, (img_k, st_k), (img_p, st_p) in zip(cams, *runs):
+        for f in ("probe_reused", "probe_skipped", "radiance_reused"):
+            assert st_k[f] == st_p[f], f
+        assert abs(st_k["rays_marched"] - st_p["rays_marched"]) <= \
+            1e-3 * H * W
+        if st_k["counts"] is not None:
+            assert float((st_k["counts"] != st_p["counts"]).float().mean()) \
+                <= 1e-3
+        o, d = scene.camera_rays(cam)
+        ref = torch.cat([pipeline.render_fixed_fns(
+            fns_k, o[s:s + 32768], d[s:s + 32768], acfg.ns_full)[0]
+            for s in range(0, H * W, 32768)]).reshape(H, W, 3)
+        assert abs(float(rendering.psnr(img_k, ref))
+                   - float(rendering.psnr(img_p, ref))) <= 0.1
