@@ -106,10 +106,42 @@ root of a checkout, on a machine with one NVIDIA H100.
    hits every block left resident and gives each frame the first pass
    marched whole back bit for bit.
 
+8. ``[serve]``: the render serving engine (``serve.RenderServingEngine``)
+   over two scenes at the paper's widths, both through the kernel field
+   and the fused march: the trained lego field and the random field of
+   phases 2-4.  Three viewers, closed loop, 24 requests enqueued k-major
+   (viewers 0 and 1 on lego, viewer 2 on the random field, each at the
+   ``[reuse]`` orbit's first ``SERVE_POSES`` poses); the engine at the
+   reference's defaults (slots 4, blocks of 16 a batch, prefetch 2) with
+   every reuse tier on and a 32 MiB block store.  Readings a run (host
+   clock, synchronised): wall ms and frames/s, latency and admission
+   stall p50/p99, a round's march ms p50/p99, batches and the pad-block
+   fraction, rays marched, reused probe and radiance fractions, block
+   hit rate, the store's resident bytes and evictions, the weight-pack
+   LRU's hits, misses and size, launches; the same requests one by one
+   through ``render_asdr_image``; runs with two worker streams, two
+   batches in flight and blocks of 64 a batch; the full configuration
+   with Stage A inline and on two worker streams under ``torch.profiler``.
+   Gates, each fatal: (a) with every tier off and no prefetch, each
+   request's image, samples and probe samples equal
+   ``render_asdr_image``'s bit for bit; (b) frames and
+   ``DETERMINISTIC_COUNTERS`` bit-identical at prefetch 0, prefetch 2 and
+   two worker streams, and with every tier off at two batches in flight
+   (with the tiers on, batches in flight move when frames finish and so
+   what later admissions find cached, in the reference too: printed, not
+   gated); (c) traced with worker streams, the same frames and counters,
+   an export ``tools/check_trace.py`` passes, ``executor.run`` on
+   ``serve-stage-a`` lanes, dispatch and collect batch ids matching; (d)
+   viewer 0 alone on the plain field: equal flags and rays marched,
+   samples within 0.1 %, PSNR against ground truth within 0.1 dB; (e)
+   with the block store alone, a second viewer replaying the first's
+   ``SERVE_REPLAY_POSES`` poses marches nothing and gets its frames bit
+   for bit.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
 ``[train]``, the two trained frames together; for ``[reuse]``, the
-trajectory).
+trajectory; for ``[serve]``, the main run).
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
 reference layout: Glorot-uniform MLPs and hash tables
@@ -119,7 +151,8 @@ ladder and most Phase-II blocks saturate before their budget (both
 asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
-``[decoupled]``, ``[attention]``, ``[train]`` and ``[reuse]``.  Prints one
+``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]`` and
+``[serve]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -953,11 +986,39 @@ def run_frames(field, bundle, cam, dev):
     return launches, ref
 
 
-def report_device_time(what, fn, dev, top=6, share_of="hash_encode_kernel"):
+def stream_overlap(prof, kernel):
+    """How the launches of ``kernel`` shared the card with work on other
+    streams, from the profiler's device events: (its launches, their ms,
+    the other streams' events, their ms, the ms of those events inside a
+    launch of ``kernel``, how many of them overlap one)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() != DeviceType.CPU]
+    mine = [e for e in evs if kernel in e.name()]
+    streams = {e.device_resource_id() for e in mine}
+    other = [e for e in evs if e.device_resource_id() not in streams]
+    start = np.array([e.start_ns() for e in other], np.float64)
+    end = start + np.array([e.duration_ns() for e in other], np.float64)
+    inside, n = 0.0, 0
+    for e in mine:
+        ov = np.clip(np.minimum(end, e.start_ns() + e.duration_ns())
+                     - np.maximum(start, e.start_ns()), 0.0, None)
+        inside += float(ov.sum())
+        n += int((ov > 0).sum())
+    return (len(mine), sum(e.duration_ns() for e in mine) / 1e6, len(other),
+            float((end - start).sum()) / 1e6, inside / 1e6, n)
+
+
+def report_device_time(what, fn, dev, top=6, share_of="hash_encode_kernel",
+                       overlap_of=None):
     """One more call of ``fn`` under torch.profiler: its device time by
     kernel, the share of the kernels named ``share_of``, the kernels
     launched and the device's idle share of the call's wall time ("not
-    measured" where the profiler sees no device time)."""
+    measured" where the profiler sees no device time); with
+    ``overlap_of``, how that kernel's launches overlapped the device work
+    of other streams (``stream_overlap``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -988,6 +1049,12 @@ def report_device_time(what, fn, dev, top=6, share_of="hash_encode_kernel"):
           f"kernels; {share_of} {part:.1f} ms ({part / busy:.3f} of device "
           f"time); heaviest {[(k[:60], round(v, 3)) for k, v in heavy]}",
           flush=True)
+    if overlap_of is not None:
+        n, ms, n_o, ms_o, inside, n_in = stream_overlap(prof, overlap_of)
+        print(f"{what}: {n} {overlap_of} launches, {ms:.1f} ms on the "
+              f"device; {n_o} device events on other streams, {ms_o:.1f} "
+              f"ms, of which {inside:.1f} ms ({n_in} events) ran inside a "
+              f"{overlap_of} launch", flush=True)
 
 
 def ground_truth(scene_field, cam, dev):
@@ -1356,6 +1423,338 @@ def run_reuse(field, scene_field, bundle, dev, hw, poses=TRAJ_POSES):
     return launches
 
 
+# The [serve] phase: the render serving engine over two scenes at the
+# paper's widths, both through the kernel field and the fused march: the
+# trained lego field of [train] and the random field of phases 2-4.  Three
+# viewers, closed loop, enqueued k-major as the launcher interleaves
+# scenes: viewers 0 and 1 on lego and viewer 2 on the random field, each
+# at [reuse]'s first SERVE_POSES poses.  The engine at the reference's
+# defaults (slots 4, blocks of 16 a batch, prefetch 2) with every reuse
+# tier at its defaults and a 32 MiB block store.
+SERVE_POSES = 8
+SERVE_VIEWERS = ("lego", "lego", "random")
+SERVE_STORE_BYTES = 32 << 20
+SERVE_REPLAY_POSES = 4          # gate (e): two viewers replay these
+SERVE_WIDE_BATCH = 64           # one extra reading, blocks of 64 a batch
+SERVE_FLAGS = ("probe_reused", "probe_skipped", "radiance_reused")
+SERVE_READINGS = (
+    "latency_ms_p50", "latency_ms_p99", "admit_stall_ms_p50",
+    "admit_stall_ms_p99", "march_ms_p50", "march_ms_p99", "batches",
+    "pad_block_fraction", "rays_marched_fraction", "reused_probe_fraction",
+    "reused_radiance_fraction", "scene_block_hit_rate", "misprepares",
+    "pack_cache_hits", "pack_cache_misses", "pack_cache_size")
+
+
+def serve_cams(hw, poses=SERVE_POSES):
+    from repro_torch.core import scene
+    return [scene.look_at_camera(hw[0], hw[1], theta=CAMERA["theta"]
+                                 + TRAJ_STEP * k, phi=CAMERA["phi"])
+            for k in range(poses)]
+
+
+def serve_requests(cams, viewers=SERVE_VIEWERS):
+    """The k-major traffic: request 3k + v is viewer v at pose k."""
+    from repro_torch.serve import RenderRequest
+    return [RenderRequest(rid=len(viewers) * k + v, scene=s, cam=cam)
+            for k, cam in enumerate(cams) for v, s in enumerate(viewers)]
+
+
+def serve_config(full=True, **kw):
+    """The engine's configuration: the reference's defaults with every
+    reuse tier on (``full``), or with every tier off (the identity
+    configuration of gate (a))."""
+    from repro_torch import framecache, scenecache
+    from repro_torch.serve import RenderServeConfig
+    tiers = dict(reuse=framecache.ProbeReuseConfig(),
+                 radiance=framecache.RadianceReuseConfig(),
+                 scenecache=scenecache.SceneCacheConfig(
+                     byte_budget=SERVE_STORE_BYTES)) if full else dict(
+        reuse=None, radiance=None, scenecache=None, prefetch=0)
+    return RenderServeConfig(**{**tiers, **kw})
+
+
+def timed_calls(module, name, log):
+    """Replace ``module.name`` by a wrapper that appends each call's host
+    seconds to ``log``; returns the function that restores it."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        log.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def serve_run(fields, acfg, rcfg, reqs, dev, trace=False):
+    """One engine over ``fields`` serving ``reqs`` closed loop, host clock
+    around the synchronised call.  Returns ({rid: request}, engine_stats,
+    wall ms, the tracer's (spans, export origin) or None)."""
+    import dataclasses
+    from repro_torch import obs
+    from repro_torch.serve import RenderServingEngine
+
+    if trace:
+        rcfg = dataclasses.replace(rcfg, trace=obs.TraceConfig())
+    eng = RenderServingEngine(fields, acfg, rcfg, device=dev)
+    try:
+        done, ms = host_ms(lambda: eng.render(reqs), dev)
+        spans = None
+        if eng.tracer is not None:
+            eng.tracer.drain()
+            spans = (list(eng.tracer.spans), eng.tracer.export_origin())
+        return {r.rid: r for r in done}, eng.engine_stats(), ms, spans
+    finally:
+        eng.close()
+
+
+def serve_reading(tag, done, st, ms):
+    sc = st.get("scenecache") or {}
+    print(f"[serve] {tag}: {len(done)} frames in {ms:.1f} ms "
+          f"({1e3 * len(done) / ms:.2f} frames/s); "
+          + "; ".join(f"{k} {st[k]:.4g}" if isinstance(st[k], float)
+                      else f"{k} {st[k]}" for k in SERVE_READINGS)
+          + f"; blocks marched {st['blocks_marched']}, scene block hits "
+          f"{st['scene_block_hits']}; store resident "
+          f"{sc.get('resident_bytes', 0)} B, evictions "
+          f"{sc.get('evictions', 0)}; batches a round "
+          f"{st['batches_per_round']}", flush=True)
+
+
+def same_serving(a, b, st_a, st_b) -> bool:
+    """Frames bit for bit and the deterministic counters equal."""
+    import numpy as np
+    from repro_torch.serve.stats import DETERMINISTIC_COUNTERS
+    return (a.keys() == b.keys()
+            and all(np.array_equal(a[r].image, b[r].image) for r in a)
+            and all(st_a[c] == st_b[c] for c in DETERMINISTIC_COUNTERS))
+
+
+def run_serve(field_t, scene_t, field_r, bundle, dev, hw):
+    """The render serving engine through the kernel path: the traffic's
+    readings, the same requests one by one through render_asdr_image, then
+    gates (a)-(e).  Returns the serve run's launches."""
+    import dataclasses
+    import json
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import model, pipeline, rendering
+    from repro_torch.serve.stats import DETERMINISTIC_COUNTERS
+    from repro_torch.kernels import ops
+    from repro_torch.scenecache import key as scenecache_key
+    sys.path.insert(0, str(ROOT / "tools"))
+    import check_trace
+
+    t0 = time.perf_counter()
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    fields = {"lego": ops.field_fns(field_t), "random": ops.field_fns(field_r)}
+    cams = serve_cams(hw)
+    B, R = acfg.block_size, hw[0] * hw[1]
+    full = serve_config()
+
+    # the main path: the full configuration at the reference's defaults,
+    # the host's block keys timed (they run on the engine thread)
+    key_s = []
+    restore = timed_calls(scenecache_key, "block_keys", key_s)
+    try:
+        (done, st, ms, _), launches = path_launches(
+            FRAME_KERNELS, lambda: serve_run(fields, acfg, full,
+                                             serve_requests(cams), dev))
+    finally:
+        restore()
+    print(f"[serve] {len(SERVE_VIEWERS)} viewers {SERVE_VIEWERS} x "
+          f"{SERVE_POSES} poses of {hw[0]}x{hw[1]} (theta {CAMERA['theta']} "
+          f"+ {TRAJ_STEP} k, phi {CAMERA['phi']}), k-major, kernel field, "
+          f"fused march; slots {full.slots}, blocks of {full.blocks_per_batch}"
+          f" a batch ({full.blocks_per_batch * B} rays), prefetch "
+          f"{full.prefetch}; all tiers, store {SERVE_STORE_BYTES >> 20} MiB; "
+          f"launches {launches}", flush=True)
+    serve_reading("full, prefetch 2", done, st, ms)
+    print(f"[serve] host block keys: {1e3 * sum(key_s):.1f} ms in "
+          f"{len(key_s)} calls ({sum(key_s) / ms * 1e3:.3f} of the wall)",
+          flush=True)
+    for rid, r in sorted(done.items()):
+        s = r.stats
+        print(f"[serve] request {rid} ({r.scene}, pose {rid // 3}): latency "
+              f"{1e3 * r.latency_s:.1f} ms, stall "
+              f"{1e3 * s['admit_stall_s']:.1f} ms; rays marched "
+              f"{s['rays_marched']}; "
+              f"{', '.join(f'{f} {s[f]}' for f in SERVE_FLAGS)}; block hits "
+              f"{s['scene_block_hits']}; samples {s['samples_processed']} + "
+              f"probe {s['probe_samples']}, reused {s['samples_reused']}",
+              flush=True)
+    if not all(np.isfinite(r.image).all() and r.image.shape == (*hw, 3)
+               for r in done.values()):
+        raise AssertionError("[serve]: non-finite or misshapen frame")
+
+    # the same requests one by one through render_asdr_image
+    reqs = serve_requests(cams)
+    single, ms_single = {}, 0.0
+    for r in reqs:
+        (img, st1), ms1 = host_ms(lambda: pipeline.render_asdr_image(
+            fields[r.scene], acfg, r.cam, device=dev), dev)
+        single[r.rid] = (img.cpu().numpy(), st1["samples_processed"],
+                         st1["probe_samples"])
+        ms_single += ms1
+    print(f"[serve] the same {len(reqs)} requests one by one through "
+          f"render_asdr_image: {ms_single:.1f} ms ({ms_single / ms:.3f}x the "
+          f"engine's wall); the frame's march alone on 157 blocks took "
+          f"~95 ms (PERF.md §5), a pooled batch's march here p50 "
+          f"{st['march_ms_p50']:.1f} ms", flush=True)
+
+    # (a) identity: every tier off, no prefetch
+    ident, st_i, ms_i, _ = serve_run(fields, acfg, serve_config(False),
+                                     serve_requests(cams), dev)
+    serve_reading("identity (tiers off, prefetch 0)", ident, st_i, ms_i)
+    a_bad = [rid for rid, r in ident.items()
+             if not (np.array_equal(r.image, single[rid][0])
+                     and r.stats["samples_processed"] == single[rid][1]
+                     and r.stats["probe_samples"] == single[rid][2])]
+    print(f"[serve] gate (a): every request bit-equal to render_asdr_image "
+          f"(image, samples, probe samples): {not a_bad}", flush=True)
+    if a_bad:
+        raise AssertionError(f"[serve] gate (a): requests {a_bad} differ "
+                             f"from render_asdr_image")
+
+    # (b) executor invariance
+    runs = {"prefetch 0": serve_run(fields, acfg, dataclasses.replace(
+        full, prefetch=0), serve_requests(cams), dev),
+        "prefetch 2, workers 2": serve_run(fields, acfg, dataclasses.replace(
+            full, workers=2), serve_requests(cams), dev)}
+    for tag, (d, s, m, _) in runs.items():
+        serve_reading(f"full, {tag}", d, s, m)
+    inflight_i = serve_run(fields, acfg, serve_config(False, inflight_batches=2),
+                           serve_requests(cams), dev)
+    serve_reading("identity, inflight 2", *inflight_i[:3])
+    inflight_f = serve_run(fields, acfg, dataclasses.replace(
+        full, inflight_batches=2), serve_requests(cams), dev)
+    serve_reading("full, inflight 2", *inflight_f[:3])
+    b_ok = {tag: same_serving(done, d, st, s)
+            for tag, (d, s, _, _) in runs.items()}
+    b_ok["identity, inflight 2"] = same_serving(ident, inflight_i[0], st_i,
+                                                inflight_i[1])
+    f_same = same_serving(done, inflight_f[0], st, inflight_f[1])
+    print(f"[serve] gate (b): bit-identical frames and counters against the "
+          f"prefetch-2 run {b_ok}; full configuration at inflight 2 (moves "
+          f"when frames finish, so what later admissions find cached; not "
+          f"gated): same {f_same}, counters "
+          f"{ {c: inflight_f[1][c] for c in DETERMINISTIC_COUNTERS} }",
+          flush=True)
+    if not all(b_ok.values()):
+        raise AssertionError(f"[serve] gate (b): {b_ok}")
+    wide = serve_run(fields, acfg, dataclasses.replace(
+        full, blocks_per_batch=SERVE_WIDE_BATCH), serve_requests(cams), dev)
+    serve_reading(f"full, blocks of {SERVE_WIDE_BATCH} a batch", *wide[:3])
+    plain_w = runs["prefetch 2, workers 2"]
+    del runs, inflight_i, inflight_f, wide
+
+    # (c) tracing, with the worker streams on
+    traced = serve_run(fields, acfg, dataclasses.replace(full, workers=2),
+                       serve_requests(cams), dev, trace=True)
+    spans, origin = traced[3]
+    export = json.loads(json.dumps(obs.export.chrome_trace(
+        spans, origin, 0), default=str))
+    bad = check_trace.validate(export)
+    lanes = {s.lane for s in spans if s.name == "executor.run"}
+    disp = {s.attrs["batch"]: s.attrs["reqs"] for s in spans
+            if s.name == "pool.dispatch"}
+    coll = {s.attrs["batch"]: s.attrs["reqs"] for s in spans
+            if s.name == "pool.collect"}
+    c_ok = (same_serving(plain_w[0], traced[0], plain_w[1], traced[1])
+            and not bad and lanes and all(l.startswith("serve-stage-a")
+                                          for l in lanes)
+            and disp and disp == coll)
+    by_name = {}
+    for sp in spans:
+        n, t = by_name.get(sp.name, (0, 0.0))
+        by_name[sp.name] = (n + 1, t + sp.dur_ms)
+    print(f"[serve] gate (c): traced run (workers 2, {traced[2]:.1f} ms) "
+          f"bit-identical to the untraced ({plain_w[2]:.1f} ms): "
+          f"{same_serving(plain_w[0], traced[0], plain_w[1], traced[1])}; "
+          f"{len(export['traceEvents'])} events, {len(bad)} schema findings; "
+          f"executor.run lanes {sorted(lanes)}; {len(disp)} dispatch / "
+          f"{len(coll)} collect batch ids matching: {disp == coll}; spans "
+          f"{ {n: (c, round(t, 1)) for n, (c, t) in sorted(by_name.items())} }",
+          flush=True)
+    if not c_ok:
+        raise AssertionError(f"[serve] gate (c): findings {bad[:3]}, lanes "
+                             f"{lanes}, batches matching {disp == coll}")
+    del plain_w, traced, spans, export
+
+    # (d) viewer 0 alone on the plain field against the kernel field
+    v0 = serve_requests(cams, viewers=("lego",))
+    kern = serve_run({"lego": fields["lego"]}, acfg, full, v0, dev)
+    plain = serve_run({"lego": model.field_fns(field_t)}, acfg, full,
+                      serve_requests(cams, viewers=("lego",)), dev)
+    gts = [ground_truth(scene_t, cam, dev) for cam in cams]
+    worst, flags_eq = [0.0, 0.0, 0.0], True
+    for k, gt in enumerate(gts):
+        a, b = kern[0][k], plain[0][k]
+        flags_eq &= all(a.stats[f] == b.stats[f] for f in SERVE_FLAGS)
+        worst[0] = max(worst[0], abs(a.stats["rays_marched"]
+                                     - b.stats["rays_marched"]) / R)
+        worst[1] = max(worst[1], abs(a.stats["samples_processed"]
+                                     - b.stats["samples_processed"])
+                       / max(a.stats["samples_processed"], 1))
+        worst[2] = max(worst[2], abs(
+            float(rendering.psnr(torch.from_numpy(a.image).to(dev), gt))
+            - float(rendering.psnr(torch.from_numpy(b.image).to(dev), gt))))
+    print(f"[serve] gate (d): viewer 0 alone, kernel field {kern[2]:.1f} ms, "
+          f"plain field {plain[2]:.1f} ms: flags equal {flags_eq}; worst "
+          f"rays-marched gap {worst[0]:.3e} of the rays, samples gap "
+          f"{worst[1]:.3e}, PSNR gap vs ground truth {worst[2]:.4f} dB",
+          flush=True)
+    if not (flags_eq and worst[0] == 0.0
+            and worst[1] <= MAX_COUNT_DIFF and worst[2] <= MAX_PSNR_DIFF):
+        raise AssertionError("[serve] gate (d): the plain field's requests "
+                             "differ from the kernel field's")
+    del kern, plain, gts
+
+    # (e) two viewers replay the same lego poses through the block store
+    store_only = serve_config(reuse=None, radiance=None)
+    rp = serve_cams(hw, SERVE_REPLAY_POSES)
+    alone, st_alone, _, _ = serve_run({"lego": fields["lego"]}, acfg,
+                                      store_only, serve_requests(
+                                          rp, viewers=("lego",)), dev)
+    both, st_both, ms_both, _ = serve_run(
+        {"lego": fields["lego"]}, acfg, store_only,
+        serve_requests(rp, viewers=("lego", "lego")), dev)
+    n_blocks = -(-R // B)
+    second = [both[2 * k + 1] for k in range(SERVE_REPLAY_POSES)]
+    first = [both[2 * k] for k in range(SERVE_REPLAY_POSES)]
+    e_ok = (all(s.stats["scene_block_hits"] == n_blocks
+                and s.stats["samples_processed"] == 0 for s in second)
+            and st_both["blocks_marched"] == st_alone["blocks_marched"]
+            and all(np.array_equal(f.image, s.image)
+                    for f, s in zip(first, second)))
+    serve_reading("store only, two viewers", both, st_both, ms_both)
+    print(f"[serve] gate (e): the second viewer's {SERVE_REPLAY_POSES} "
+          f"frames: block hits {[s.stats['scene_block_hits'] for s in second]}"
+          f" of {n_blocks}, samples {[s.stats['samples_processed'] for s in second]}"
+          f"; blocks marched {st_both['blocks_marched']} against "
+          f"{st_alone['blocks_marched']} for the first viewer alone; frames "
+          f"bit-equal to the first viewer's: "
+          f"{all(np.array_equal(f.image, s.image) for f, s in zip(first, second))}",
+          flush=True)
+    if not e_ok:
+        raise AssertionError("[serve] gate (e): the second viewer marched or "
+                             "its frames differ")
+    del alone, both
+
+    # device time by kernel, Stage A inline and on two worker streams
+    for workers in (0, 2):
+        report_device_time(
+            f"[serve] full, workers {workers}", lambda: serve_run(
+                fields, acfg, dataclasses.replace(full, workers=workers),
+                serve_requests(cams), dev), dev, share_of="fused_march",
+            overlap_of="fused_march")
+    print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def run_decoupled(field, bundle, cam, ref, dev, reps=3):
     """The §4.3 decoupled frame through the kernel field in ray chunks,
     then one volume_render launch on its kept samples.  Returns the
@@ -1570,7 +1969,7 @@ def check_attention_ragged(dev):
 
 
 def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
-    """Phases 2-7 on ``dev`` at ``bundle``, image size ``hw``, attention
+    """Phases 2-8 on ``dev`` at ``bundle``, image size ``hw``, attention
     widths ``attn``, ``seq`` tokens and training ``train_kw``; returns the
     kernel rows of the JSON line."""
     from repro_torch import params
@@ -1586,6 +1985,7 @@ def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
     fa_row, fa_launches = run_attention(attn, seq, dev, reps)
     field_t, scene_t = run_train(bundle, cam, dev, train_kw)
     run_reuse(field_t, scene_t, bundle, dev, hw)
+    run_serve(field_t, scene_t, field, bundle, dev, hw)
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches, **fa_launches)
     for r in rows:

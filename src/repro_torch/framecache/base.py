@@ -24,15 +24,29 @@ stages on worker threads):
     never in-place array mutation) with the version bump in the same
     critical section, so a snapshot taken under the lock can never be
     torn: its arrays and its version stamp always belong to the same
-    rebase generation.
+    rebase generation;
+  * a snapshot's CUDA tensors are recorded as in use on the stream that
+    takes it (``mark_stream_use``): execution may run on a worker's
+    stream after the engine has rebased the entry and dropped its last
+    reference, and the caching allocator must not hand that memory out
+    again before the worker's kernels have read it.
 """
 from __future__ import annotations
 
 import threading
 
 import numpy as np
+import torch
 
 from ..core import adaptive
+
+
+def mark_stream_use(*tensors) -> None:
+    """``record_stream`` each CUDA tensor on its device's current stream
+    (None and CPU tensors pass)."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
 
 
 class PoseKeyedCache:

@@ -33,7 +33,7 @@ from ..core.fields import FieldFns
 from ..core.pipeline import ASDRConfig
 from ..obs import trace as trace_lib
 from . import warp as warp_lib
-from .base import PoseKeyedCache
+from .base import PoseKeyedCache, mark_stream_use
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,6 +258,8 @@ def _plan_probe(cache, cam, acfg: ASDRConfig) -> ProbePlan:
             # mode — a pose delta whose radius overflows dilate_cap
             return ProbePlan("refresh", entry)
         mode = "exact" if shift == 0 else ("warp" if rcfg.warp else "dilate")
+        mark_stream_use(entry.maps.counts, entry.maps.opacity,
+                        entry.maps.depth)
         return ProbePlan("reuse", entry, mode, radius,
                          basis=(mode, id(entry), entry.version, radius),
                          src_maps=entry.maps, src_cam=entry.cam)

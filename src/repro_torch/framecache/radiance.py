@@ -37,7 +37,7 @@ from ..core import adaptive, scene
 from ..core.pipeline import ASDRConfig
 from ..obs import trace as trace_lib
 from . import warp as warp_lib
-from .base import PoseKeyedCache
+from .base import PoseKeyedCache, mark_stream_use
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +200,7 @@ def _plan_lookup(cache, cam, acfg, prepared=None) -> RadiancePlan:
         basis = (id(entry), entry.version, shift == 0)
         src_rgb, src_acc, src_depth = entry.rgb, entry.acc, entry.depth
         src_cam = entry.cam
+        mark_stream_use(src_rgb, src_acc, src_depth)
     if (prepared is not None and prepared.warped is not None
             and prepared.basis == basis):
         warped = prepared.warped

@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+launch_lock = threading.Lock()   # guards every wrapper's ``launches``
 
 
 def nvcc() -> str:
@@ -102,6 +103,14 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: the serving engine
+    launches kernels from its worker threads too, and a bare ``+= 1`` of
+    two threads can lose one."""
+    with launch_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

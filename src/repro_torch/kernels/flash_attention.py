@@ -162,7 +162,7 @@ def flash_attention(q, k, v, window: int = 0, softcap: float = 0.0):
                  S, H, KV, Dh, int(window), float(softcap), Dh ** -0.5,
                  int(q.dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -259,7 +259,7 @@ def fused_march(o, d, sh, budgets, meta, tables, wd, dims_d, wc, dims_c, *,
                  (ctypes.c_int * len(dims_c))(*dims_c), floats,
                  out.data_ptr(), sync.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "fused_march")
-    fused_march.launches += 1
+    _build.count_launch(fused_march)
     return out
 
 

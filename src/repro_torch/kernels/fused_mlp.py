@@ -325,7 +325,7 @@ def density_mlp(enc, flat, dims):
     if enc.device.type == "cpu":
         return density_mlp_plain(enc, flat, dims)
     out = _launch("density_mlp", enc, flat, dims, check_density_chain)
-    density_mlp.launches += 1
+    _build.count_launch(density_mlp)
     return out
 
 
@@ -335,7 +335,7 @@ def color_mlp(cin, flat, dims):
     if cin.device.type == "cpu":
         return color_mlp_plain(cin, flat, dims)
     out = _launch("color_mlp", cin, flat, dims, check_color_chain)
-    color_mlp.launches += 1
+    _build.count_launch(color_mlp)
     return out
 
 
@@ -372,7 +372,7 @@ def fused_field(enc, sh, wd, dims_d, wc, dims_c):
                  wc.data_ptr(), (ctypes.c_int * len(dims_c))(*dims_c),
                  len(dims_c) - 1, out.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "fused_field")
-    fused_field.launches += 1
+    _build.count_launch(fused_field)
     return out
 
 

@@ -152,7 +152,7 @@ def hash_encode(points, meta, tables):
                  L, T, F, levels_per_group(F), out.data_ptr(),
                  _build.stream_ptr(dev))
     _build.check(err, "hash_encode")
-    hash_encode.launches += 1
+    _build.count_launch(hash_encode)
     return out
 
 

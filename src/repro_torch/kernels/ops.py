@@ -14,11 +14,15 @@
 CUDA kernels and which carries ``FusedMarchResources``, so
 ``ASDRConfig.march_backend="fused"`` sends Phase II to the fused march.
 Weights stay at their true widths, row-major (fan_in, fan_out) fp32,
-packed flat once per field (``fused_mlp.pack_chain``).
+packed flat once per set of weight tensors (``packed_weights``, an LRU
+shared by every engine in the process).
 """
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
+from typing import Dict
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ import torch
 from ..core import mlp as mlp_lib
 from ..core import rendering, scene
 from ..core.fields import FieldFns
+from . import _build
 from . import flash_attention as FA
 from . import fused_march as FMA
 from . import fused_mlp as FM
@@ -91,6 +96,43 @@ def volume_render(sigmas, anchor_colors, deltas, group: int, valid=None,
     return rgb, acc
 
 
+# Packed weight chains are pure functions of the weight tensors, so they
+# are memoized keyed on the tensors' identity: an engine restart or a
+# second kernel field over the same weights re-uses the packed copies.
+# Each entry keeps references to its source tensors, so their ids cannot
+# be recycled while it lives; LRU-bounded at _PACK_MAX.
+_PACK_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PACK_LOCK = threading.Lock()
+_PACK_MAX = 16
+_PACK_STATS = {"hits": 0, "misses": 0}
+
+
+def packed_weights(field):
+    """Memoized ``(density, color)`` packed chains ((flat, dims) each) of
+    an ``NGPField``'s MLP weights."""
+    dw, cw = field.density_weights, field.color_weights
+    key = (tuple(id(w) for w in dw), tuple(id(w) for w in cw))
+    with _PACK_LOCK:
+        hit = _PACK_CACHE.get(key)
+        if hit is not None:
+            _PACK_CACHE.move_to_end(key)
+            _PACK_STATS["hits"] += 1
+            return hit[0], hit[1]
+        _PACK_STATS["misses"] += 1
+    density, color = FM.pack_chain(dw), FM.pack_chain(cw)
+    with _PACK_LOCK:
+        _PACK_CACHE[key] = (density, color, list(dw), list(cw))
+        _PACK_CACHE.move_to_end(key)
+        while len(_PACK_CACHE) > _PACK_MAX:
+            _PACK_CACHE.popitem(last=False)
+    return density, color
+
+
+def pack_cache_stats() -> Dict[str, int]:
+    with _PACK_LOCK:
+        return dict(_PACK_STATS, size=len(_PACK_CACHE))
+
+
 class FusedMarchResources:
     """Device-resident inputs of the fused march: grid meta, tables and the
     two packed weight chains of one field."""
@@ -99,8 +141,7 @@ class FusedMarchResources:
         cfg = field.cfg
         self.meta = HE.grid_meta(cfg.grid, field.grid.device)
         self.tables = field.grid
-        self.density = FM.pack_chain(field.density_weights)
-        self.color = FM.pack_chain(field.color_weights)
+        self.density, self.color = packed_weights(field)
         self.net = cfg.net
 
 
@@ -157,9 +198,11 @@ KERNELS = (HE.hash_encode, FM.density_mlp, FM.color_mlp, FMA.fused_march,
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    with _build.launch_lock:
+        return {k.__name__: k.launches for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _build.launch_lock:
+        for k in KERNELS:
+            k.launches = 0

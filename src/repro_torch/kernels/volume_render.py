@@ -123,7 +123,7 @@ def volume_render(sigmas, deltas, anchors, group: int):
         err = fn(sigmas.data_ptr(), deltas.data_ptr(), anchors.data_ptr(), R,
                  S, A, group, out.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "volume_render")
-    volume_render.launches += 1
+    _build.count_launch(volume_render)
     return out
 
 

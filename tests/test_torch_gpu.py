@@ -388,3 +388,115 @@ def test_reuse_trajectory_kernel_matches_plain(paper_field):
             for s in range(0, H * W, 32768)]).reshape(H, W, 3)
         assert abs(float(rendering.psnr(img_k, ref))
                    - float(rendering.psnr(img_p, ref))) <= 0.1
+
+
+def _serve_engine(fields, acfg, device, caches=True, **kw):
+    from repro_torch.serve import render_engine
+    tiers = dict(
+        reuse=framecache.ProbeReuseConfig(refresh_every=0),
+        radiance=framecache.RadianceReuseConfig(refresh_every=0),
+        scenecache=scenecache.SceneCacheConfig(byte_budget=8 << 20)
+    ) if caches else dict(reuse=None)
+    return render_engine.RenderServingEngine(
+        fields, acfg, render_engine.RenderServeConfig(
+            blocks_per_batch=4, slots=2, **tiers, **kw), device=device)
+
+
+def test_serve_worker_streams_are_deterministic(cuda):
+    """The serving engine on the kernel field (fused march) at a small
+    size: with every reuse tier on, frames and deterministic counters are
+    bit-identical with the Stage-A probes inline and on two worker streams
+    beside the march; with the tiers off, two batches in flight change
+    nothing either, and a request's frame equals render_asdr_image's.
+    (With the tiers on, batches in flight move when frames finish and so
+    what later admissions find cached, in the reference as here.  Both
+    scenes are kernel fields: the fused march gives a block the same rows
+    whatever shares its launch, the plain field's matmuls need not.)"""
+    from repro_torch.serve import render_engine
+    from repro_torch.serve.stats import DETERMINISTIC_COUNTERS
+    bundle = ingp_asdr.SMOKE
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    fields = {name: ops.field_fns(params.from_jax_params(
+        params.random_params(bundle.model, seed, 30.0), bundle.model,
+        device=cuda)) for name, seed in (("a", 8), ("b", 9))}
+
+    def reqs():
+        return [render_engine.RenderRequest(
+            rid=i, scene="ab"[i % 2], cam=scene.look_at_camera(
+                40, 40, theta=0.9 + 0.05 * (i // 2 % 3), phi=0.55))
+            for i in range(12)]
+
+    def run(caches, **kw):
+        eng = _serve_engine(fields, acfg, cuda, caches, **kw)
+        ops.reset_launch_counts()
+        done = {r.rid: r for r in eng.render(reqs())}
+        out = (done, eng.engine_stats(), ops.launch_counts())
+        eng.close()
+        return out
+
+    for caches, variants in ((True, (dict(prefetch=2),
+                                     dict(prefetch=2, workers=2))),
+                             (False, (dict(inflight_batches=2),))):
+        ref_done, ref_st, launches = run(caches, prefetch=0)
+        assert launches["fused_march"] == ref_st["batches"] > 0
+        assert launches["hash_encode"] > 0 and launches["color_mlp"] > 0
+        for kw in variants:
+            done, st, _ = run(caches, **kw)
+            for rid in ref_done:
+                assert np.array_equal(ref_done[rid].image,
+                                      done[rid].image), kw
+            for c in DETERMINISTIC_COUNTERS:
+                assert st[c] == ref_st[c], (kw, c)
+    img, _ = pipeline.render_asdr_image(fields["a"], acfg, reqs()[0].cam,
+                                        device=cuda)
+    assert np.array_equal(ref_done[0].image, img.cpu().numpy())
+
+
+@pytest.mark.parametrize("n_real", [1, 3, 4])
+def test_padded_batch_rows_equal_an_unpadded_launch(n_real, cuda):
+    """The pool pads a partial batch with unit-budget dummy blocks (o = 0,
+    d = +z): the real blocks' rows of the padded launch equal an
+    unpadded launch of the real blocks alone, to the bit."""
+    from repro_torch.serve import pool as pool_lib
+    from repro_torch.serve.scheduler import DEFAULT_CLASS
+    from repro_torch.serve.stats import EngineCounters
+    bundle = ingp_asdr.SMOKE
+    field = params.from_jax_params(params.random_params(bundle.model, 8, 30.0),
+                                   bundle.model, device=cuda)
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    fns = ops.field_fns(field)
+    cam = scene.look_at_camera(40, 40, theta=0.9, phi=0.55)
+    o, d = scene.camera_rays(cam, device=cuda)
+    counts, _ = pipeline.probe_phase(fns, acfg, cam, device=cuda)
+    o, d, counts, _, _ = pipeline.pad_rays_to_blocks(acfg, o, d, counts)
+    order, budgets = pipeline.block_sort(acfg, counts)
+    B = acfg.block_size
+    o_s, d_s = o[order].reshape(-1, B, 3), d[order].reshape(-1, B, 3)
+    at = torch.arange(n_real, device=cuda)
+    alone = ops.fused_march_blocks(fns.fused, acfg, o_s[at], d_s[at],
+                                   budgets[at].to(torch.int32))
+
+    class _Req:
+        rid, scene, arrival_s, cls = 0, "a", 0.0, DEFAULT_CLASS
+
+    class _Slot:
+        req = _Req()
+        rows = {}
+
+        def deliver(self, bi, rgb, acc, depth, chunks, cached=False):
+            self.rows[bi] = (rgb, acc, depth, chunks)
+
+    slot = _Slot()
+    pool = pool_lib.BlockPool(acfg, 4, None, EngineCounters())
+    pool.items = [(slot, i, o_s[i], d_s[i], int(budgets[i]), None, None,
+                   False) for i in range(n_real)]
+    handle = pool.dispatch(lambda scene_id, dens: pool_lib.batched_march(
+        fns, acfg, dens))
+    assert handle[2] == 4 - n_real
+    pool.collect(handle)
+    for i in range(n_real):
+        rgb, acc, depth, chunks = slot.rows[i]
+        assert np.array_equal(rgb, alone[0][i].cpu().numpy())
+        assert np.array_equal(acc, alone[1][i].cpu().numpy())
+        assert np.array_equal(depth, alone[2][i].cpu().numpy())
+        assert int(chunks) == int(alone[3][i])

@@ -269,3 +269,111 @@ def test_tracing_on_off_bit_identical_and_spans_equal(tmp_path):
     jtr = jobs.Tracer(jobs.TraceConfig())
     _trajectory(jfc, jsc_, jpl, jsc, fj, jtr)
     assert _span_tree(tr) == _span_tree(jtr)
+
+
+# ------------------------------------------------------ engine integration
+def _engine_run(rcfg, n=6):
+    from test_torch_render_serve import acfgs, field_pairs, requests
+    from repro_torch.serve import render_engine as tre
+    eng = tre.RenderServingEngine({"mic": field_pairs()["mic"][1]},
+                                  acfgs()[1], rcfg, device="cpu")
+    reqs = requests([(i, "mic", 0.7 + 0.05 * (i % 3), 0.5)
+                     for i in range(n)])[1]
+    done = {r.rid: r for r in eng.render(reqs)}
+    st = eng.engine_stats()
+    spans = list(eng.tracer.spans) if eng.tracer is not None else None
+    st["prometheus"] = eng.metrics.prometheus()
+    eng.close()
+    return done, st, spans
+
+
+def test_engine_trace_off_by_default():
+    from test_torch_render_serve import acfgs, field_pairs
+    from repro_torch.serve import render_engine as tre
+    assert tre.RenderServeConfig().trace is None
+    eng = tre.RenderServingEngine({"mic": field_pairs()["mic"][1]},
+                                  acfgs()[1], device="cpu")
+    assert eng.tracer is None
+    eng.close()
+
+
+@pytest.mark.parametrize("workers,prefetch", [(0, 0), (0, 2), (2, 0), (2, 2)])
+def test_engine_bit_identity_tracing_on_off(workers, prefetch, tmp_path):
+    """The engine's frames and every deterministic counter are identical
+    with tracing on and off, for the sync and threaded executors x
+    prefetch {0, 2}; the worker speculation lands on ``serve-stage-a``
+    lanes and the export passes the reference's validator."""
+    import dataclasses
+    from test_torch_render_serve import serve_cfgs
+    from repro_torch.serve.stats import DETERMINISTIC_COUNTERS
+    base = serve_cfgs(slots=2, blocks_per_batch=4, workers=workers,
+                      prefetch=prefetch, reuse=dict(refresh_every=0),
+                      radiance=dict(refresh_every=0))[1]
+    traced = dataclasses.replace(base, trace=tobs.TraceConfig(
+        path=str(tmp_path / "t.json"), flight=True, stall_dump_ms=1e9))
+    d_off, st_off, _ = _engine_run(base)
+    d_on, st_on, spans = _engine_run(traced)
+    assert d_off.keys() == d_on.keys()
+    for rid in d_off:
+        np.testing.assert_array_equal(d_off[rid].image, d_on[rid].image)
+    for k in DETERMINISTIC_COUNTERS:
+        assert st_off[k] == st_on[k], k
+    assert spans
+    runs = [s for s in spans if s.name == "executor.run"]
+    if workers and prefetch:
+        assert runs and all(s.lane.startswith("serve-stage-a") for s in runs)
+    assert check_trace.check_file(tmp_path / "t.json") == []
+
+
+def test_engine_trace_reconstructs_lineage(tmp_path):
+    """A replayed frame's trace chains admission -> dispatch -> collect ->
+    commit with matching req/batch ids, as the reference's does."""
+    from test_torch_render_serve import serve_cfgs
+    path = tmp_path / "trace.json"
+    rcfg = serve_cfgs(slots=2, blocks_per_batch=4,
+                      reuse=dict(refresh_every=0),
+                      scenecache=dict(byte_budget=4 << 20), prefetch=2)[1]
+    import dataclasses
+    rcfg = dataclasses.replace(rcfg, trace=tobs.TraceConfig(path=str(path)))
+    done, _, spans = _engine_run(rcfg)
+    assert len(done) == 6
+    names = {s.name for s in spans}
+    for required in ("admission.wait", "stage_a.prepare", "stage_b.admit",
+                     "commit", "pool.sweep", "pool.dispatch_round",
+                     "pool.dispatch", "pool.collect", "probe.plan",
+                     "probe.execute", "probe.commit"):
+        assert required in names, f"missing span {required}"
+    waits = [s for s in spans if s.name == "admission.wait"]
+    assert {s.attrs["req"] for s in waits} == set(done)
+    by_sid = {s.sid: s for s in spans}
+    for s in spans:
+        if s.name == "stage_b.admit":
+            parent = by_sid[s.parent]
+            assert parent.name == "admission.wait"
+            assert parent.attrs["req"] == s.attrs["req"]
+    dispatches = {s.attrs["batch"]: s for s in spans
+                  if s.name == "pool.dispatch"}
+    collects = {s.attrs["batch"]: s for s in spans
+                if s.name == "pool.collect"}
+    assert dispatches and set(collects) == set(dispatches)
+    for bid, d in dispatches.items():
+        assert collects[bid].attrs["reqs"] == d.attrs["reqs"]
+        assert d.attrs["scene"] == "mic"
+        assert d.attrs["device_ms"] > 0.0
+    assert check_trace.check_file(path) == []
+
+
+def test_engine_stats_is_registry_read():
+    """engine_stats() keys survive the registry round-trip exactly, and the
+    same numbers appear in the Prometheus exposition."""
+    from test_torch_render_serve import serve_cfgs
+    _, st, _ = _engine_run(serve_cfgs(slots=2, blocks_per_batch=4)[1], n=4)
+    for k in ("frames", "latency_ms_p50", "latency_ms_p99",
+              "admit_stall_ms_p50", "admit_stall_ms_p99",
+              "march_ms_p50", "march_ms_p99", "march_rounds",
+              "batches_per_round"):
+        assert k in st, k
+    assert st["frames"] == 4
+    assert st["latency_ms_p99"] >= st["latency_ms_p50"] > 0
+    assert f"frames {st['frames']}" in st["prometheus"]
+    assert max(st["batches_per_round"]) >= 1

@@ -310,3 +310,87 @@ def test_duplicate_keys_march_once():
     assert st_["scene_block_misses"] == 2 and cache.stores == 1
     B = ACFG["block_size"]
     assert torch.equal(rgb[:B], rgb[B:])
+
+
+# ----------------------------------------------------------------- engine
+def test_engine_scenecache_none_is_bit_identical():
+    """scenecache=None leaves the pooled-march engine bit-identical to
+    render_asdr_image, and engine_stats has no store section."""
+    from test_torch_render_serve import acfgs, field_pairs, requests
+    from repro_torch.serve import render_engine as tre
+    fns = field_pairs()["mic"][1]
+    eng = tre.RenderServingEngine({"mic": fns}, acfgs()[1],
+                                  tre.RenderServeConfig(
+                                      slots=2, blocks_per_batch=4,
+                                      reuse=None, scenecache=None),
+                                  device="cpu")
+    req = requests([(0, "mic", 0.7, 0.5)])[1]
+    done = eng.render(req)
+    ref, _ = tpl.render_asdr_image(fns, acfgs()[1], req[0].cam, device="cpu")
+    np.testing.assert_array_equal(done[0].image, ref.numpy())
+    assert "scenecache" not in eng.engine_stats()
+
+
+def test_engine_cross_client_block_reuse_matches_reference():
+    """Two clients at the same pose share one store: the second's blocks
+    all come from it (no new marches), its frame equals the first's bit
+    for bit, a third client on a SECOND engine over the same store too —
+    and each engine's frames, hits and store stats equal the reference
+    engines' over a reference store."""
+    from test_torch_render_serve import (acfgs, assert_parity, field_pairs,
+                                         requests, serve_cfgs)
+    from repro.serve import render_engine as jre
+    from repro_torch.serve import render_engine as tre
+    flds = field_pairs()
+    stores = (jsc_.SceneBlockCache(jsc_.SceneCacheConfig(byte_budget=8 << 20)),
+              tsc_.SceneBlockCache(tsc_.SceneCacheConfig(byte_budget=8 << 20)))
+    cfgs = serve_cfgs(slots=2, blocks_per_batch=4, reuse=None)
+    acfg_j, acfg_t = acfgs()
+    out = []
+    for side, (re_, acfg, kw) in enumerate(((jre, acfg_j, {}),
+                                            (tre, acfg_t, {"device": "cpu"}))):
+        eng = re_.RenderServingEngine({"mic": flds["mic"][side]}, acfg,
+                                      cfgs[side], scenecache=stores[side],
+                                      **kw)
+        reqs = [requests([(i, "mic", 0.7, 0.5)])[side] for i in range(2)]
+        first, second = eng.render(reqs[0]), None
+        marched = eng.blocks_marched
+        second = eng.render(reqs[1])
+        assert eng.blocks_marched == marched
+        assert eng.scene_blocks_hit == 9
+        assert second[0].stats["scene_block_hits"] == 9
+        assert second[0].stats["samples_processed"] == 0
+        assert (second[0].stats["samples_reused"]
+                == first[0].stats["samples_processed"])
+        np.testing.assert_array_equal(np.asarray(first[0].image),
+                                      np.asarray(second[0].image))
+        eng2 = re_.RenderServingEngine({"mic": flds["mic"][side]}, acfg,
+                                       cfgs[side], scenecache=stores[side],
+                                       **kw)
+        third = eng2.render(requests([(2, "mic", 0.7, 0.5)])[side])
+        assert eng2.blocks_marched == 0 and eng2.scene_blocks_hit == 9
+        out.append((first + second + third, eng.engine_stats()))
+        eng.close()
+        eng2.close()
+    (done_j, st_j), (done_t, st_t) = out
+    assert_parity(done_j, done_t, st_j, st_t)
+    assert st_t["scenecache"] == st_j["scenecache"]
+
+
+def test_engine_same_round_duplicate_blocks_dedup():
+    """Identical requests admitted in the same round: in-batch dedup and
+    the pool sweep march each distinct block once, the frames match, and
+    the store's first-touch counters equal the reference's."""
+    from test_torch_render_serve import assert_parity, run_both
+    spec = [(i, "mic", 0.7, 0.5) for i in range(3)]
+    done_j, done_t, st_j, st_t = run_both(
+        spec, slots=4, blocks_per_batch=4, reuse=None,
+        scenecache=dict(byte_budget=8 << 20))
+    assert_parity(done_j, done_t, st_j, st_t)
+    assert st_t["blocks_marched"] == 9
+    assert st_t["scene_block_hits"] == 18
+    by = {r.rid: r for r in done_t}
+    for rid in (1, 2):
+        np.testing.assert_array_equal(by[0].image, by[rid].image)
+    assert st_t["scenecache"] == st_j["scenecache"]
+    assert st_t["scenecache"]["misses"] == 27
