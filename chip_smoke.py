@@ -61,7 +61,8 @@ root of a checkout, on a machine with one NVIDIA H100.
    the output's), the bf16 bounds on the tensor cores and on the
    special-function units; times ``scaled_dot_product_attention`` on both
    no-softcap settings; then at ``RAGGED_SEQ`` tokens, head_dim 64, H / KV
-   1 and 8, in both dtypes, global and windowed with the softcap.
+   1 and 8, in both dtypes, global and windowed with the softcap.  The
+   kernel's JSON row is ``[lm]``'s, at the main path's shapes.
 
 6. ``[train]``: trains the paper-width NGP (``CONFIG.model``) on the card
    with ``core/train.py: train_ngp`` on the lego scene: ``TRAIN_STEPS``
@@ -138,10 +139,38 @@ root of a checkout, on a machine with one NVIDIA H100.
    ``SERVE_REPLAY_POSES`` poses marches nothing and gets its frames bit
    for bit.
 
+9. ``[lm]``: gemma2-27b (``configs/gemma2_27b.py`` CONFIG, 46 layers,
+   d_model 4,608, 32 heads over 16 KV x 128, d_ff 36,864, vocab 256,000)
+   served at full width through ``lm.build`` and
+   ``ServingEngine.generate`` (slots ``LM_SLOTS``, greedy, ``max_seq``
+   ``LM_MAX_SEQ``), its weights drawn on the card from
+   ``PRNGKey(LM_INIT_SEED)`` through ``repro_torch.prng`` and stored once
+   in bf16, its prefill self-attention on the flash kernel.  The
+   ``LM_WAVES``: four 512-token prompts (linear caches) and one of 4,608
+   tokens, past the 4,096 window (ring caches on the local layers), 32
+   new tokens each.  Readings: the init's seconds, prefill ms a wave,
+   decode ms a step, tokens/s, peak memory; wave A once more sampled at
+   temperature 1.0; the share of greedy tokens the plain build (on
+   ``flash_attention_plain``) agrees on, not gated; the longest wave under
+   ``torch.profiler`` (device time by kernel, flash attention's share,
+   the idle share); flash attention's ms at both waves' shapes, local and
+   global, beside its bound, the plain version's and SDPA's (without the
+   softcap, which SDPA lacks).  Gates, each fatal: (a) fp32 at full
+   width with ``LM_GATE_LAYERS`` layers (one local, one global), the
+   kernel build against the plain build on the same weights: every
+   prefill's logits within ``LM_GATE_ATOL``, every greedy token equal,
+   each decode step of the 4,608-token prompt within ``LM_GATE_ATOL`` of
+   a full forward over the prompt and the tokens so far; (b) the bf16
+   main run: flash attention launched 46 x 2 times, every token in
+   [0, vocab) and every logit finite, and layers 0 and 1's prefill
+   attention on the longest wave held against ``flash_attention_plain``
+   on the q/k/v they had, at ``ATTN_TOL["bf16"]``.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
 ``[train]``, the two trained frames together; for ``[reuse]``, the
-trajectory; for ``[serve]``, the main run).
+trajectory; for ``[serve]``, the main run; for ``[lm]``, the main run's
+``generate``, whose flash-attention launches are the JSON row's).
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
 reference layout: Glorot-uniform MLPs and hash tables
@@ -151,8 +180,8 @@ ladder and most Phase-II blocks saturate before their budget (both
 asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
-``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]`` and
-``[serve]``.  Prints one
+``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``
+and ``[lm]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -1074,16 +1103,12 @@ def profile_train_steps(cfg, model_cfg, field, scene_field, dev):
     batch drawn from the training views' rays (its duplicate corners set
     the gather backward's time), under torch.profiler: the step's device
     time by kernel, kernels launched and idle share."""
-    import torch
-    from repro_torch import optim
+    from repro_torch import optim, prng
     from repro_torch.core import train
 
     o, d, ref = train._make_view_rays(cfg, scene_field, dev)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    idx = torch.randint(0, o.shape[0], (cfg.batch_rays,), generator=gen,
-                        device=dev)
-    jitter = torch.rand((cfg.batch_rays, cfg.n_samples), generator=gen,
-                        device=dev)
+    _, idx, jitter = train.batch_draws(prng.PRNGKey(cfg.seed), cfg,
+                                       o.shape[0], dev)
     opt = optim.AdamWConfig(lr=cfg.lr, b2=0.99, eps=1e-15)
     step = train.make_train_step(cfg, model_cfg, opt)
     state = {"params": field.params()}
@@ -1831,6 +1856,347 @@ def run_decoupled(field, bundle, cam, ref, dev, reps=3):
     return row, {"volume_render": launches["volume_render"]}
 
 
+# The [lm] phase: gemma2-27b (configs/gemma2_27b.py CONFIG) served at full
+# width through lm.build -> ServingEngine.generate, prefill attention on the
+# flash kernel.  Random weights from PRNGKey(LM_INIT_SEED), stored once in
+# the config's bf16 (54.5 GB; the reference casts its fp32 masters to bf16
+# at every use).  Two waves of prompts drawn with numpy from SEED: wave A,
+# 4 prompts of 512 tokens (inside the 4,096 window: every cache linear);
+# wave B, one prompt of 4,608 tokens, past the window (its local layers
+# decode through a 4,096-slot ring).  LM_MAX_SEQ holds wave B's prompt
+# and new tokens, plus the reference launcher's 8 spare slots.
+LM_WAVES = ((4, 512, 32), (1, 4608, 32))   # (requests, prompt, max_new)
+LM_SLOTS = 4
+LM_MAX_SEQ = 4608 + 32 + 8
+LM_INIT_SEED = 0
+LM_SAMPLE_SEED = 0                 # the temperature-1.0 run of wave A
+# Gate (a): fp32 at full width, depth cut to one local and one global
+# layer, the kernel build against the plain build on the same weights.
+LM_GATE_LAYERS = 2
+LM_GATE_ATOL = 1e-3
+LM_REPS = 3                        # CUDA-event repeats of the attention
+
+
+def lm_requests(cfg, waves, seed=SEED):
+    """The waves' requests, prompts drawn with numpy from ``seed``."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for n, plen, new in waves:
+        for _ in range(n):
+            reqs.append(Request(rid=len(reqs), max_new=new, prompt=rng.integers(
+                0, cfg.vocab, size=plen).astype(np.int32)))
+    return reqs
+
+
+def fresh(reqs):
+    import dataclasses
+    return [dataclasses.replace(r, out=None, latency_s=0.0) for r in reqs]
+
+
+def lm_engine(api, values, dev, max_seq, temperature=0.0, seed=0,
+              engine_cls=None):
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    return (engine_cls or ServingEngine)(api, values, ServeConfig(
+        max_seq=max_seq, slots=LM_SLOTS, temperature=temperature, seed=seed),
+        device=dev)
+
+
+def lm_tokens(done):
+    return {r.rid: r.out for r in done}
+
+
+def instrumented(api, dev, log):
+    """``api`` whose prefill and decode are timed on the host clock around
+    a synchronize (appended to ``log`` as ("prefill" | "decode", ms, batch,
+    tokens)) and whose logits are checked finite."""
+    import dataclasses
+    import torch
+
+    def wrap(fn, kind):
+        def call(*a, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = fn(*a, **kw)
+            sync(dev)
+            log.append((kind, 1e3 * (time.perf_counter() - t0),
+                        logits.shape[0], logits.shape[1]))
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"[lm] non-finite logits in {kind}")
+            return logits, caches
+        return call
+
+    return dataclasses.replace(api, prefill_fn=wrap(api.prefill_fn, "prefill"),
+                               decode_fn=wrap(api.decode_fn, "decode"))
+
+
+def lm_gate_a(cfg, waves, max_seq, dev):
+    """Gate (a): fp32, ``LM_GATE_LAYERS`` layers at full width; the kernel
+    build against the plain build on the same weights: every prefill's
+    logits within LM_GATE_ATOL, every greedy token equal, and each decode
+    step of the longest wave's first request within LM_GATE_ATOL of a full
+    forward over its prompt and the tokens so far (its local layer decodes
+    through the ring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.models import lm, transformer
+
+    seen = []
+
+    class Recording(ServingEngine):
+        """The engine, keeping the logits each token is drawn from."""
+
+        def _sample(self, logits, key):
+            seen.append(logits.detach().clone())
+            return super()._sample(logits, key)
+
+    gcfg = dataclasses.replace(cfg, n_layers=LM_GATE_LAYERS, dtype="float32")
+    kern = lm.build(gcfg, device=dev)
+    kern_attend = lm._route(gcfg, None, kern.device)[0]
+    plain = lm.build(gcfg, device=dev, attention=FA.flash_attention_plain)
+    values = kern.init(prng.PRNGKey(LM_INIT_SEED))
+    reqs = lm_requests(gcfg, waves)
+    worst = 0.0
+    for plen in sorted({len(r.prompt) for r in reqs}):
+        toks = {"tokens": torch.from_numpy(np.stack(
+            [r.prompt for r in reqs if len(r.prompt) == plen][:LM_SLOTS]))}
+        lk, _ = kern.prefill_fn(values, toks, max_seq=max_seq)
+        lp, _ = plain.prefill_fn(values, toks, max_seq=max_seq)
+        err = float((lk - lp).abs().max())
+        worst = max(worst, err)
+        print(f"[lm] gate (a): prefill of {tuple(toks['tokens'].shape)} "
+              f"tokens, fp32, {LM_GATE_LAYERS} layers: kernel vs plain build "
+              f"max_abs_err={err:.3e}", flush=True)
+        del lk, lp
+    got = lm_tokens(lm_engine(kern, values, dev, max_seq,
+                              engine_cls=Recording).generate(fresh(reqs)))
+    want = lm_tokens(lm_engine(plain, values, dev, max_seq).generate(
+        fresh(reqs)))
+    same = all((got[i] == want[i]).all() for i in want)
+    print(f"[lm] gate (a): greedy tokens, kernel vs plain build: "
+          f"{'all equal' if same else 'DIFFER'} over {len(want)} requests",
+          flush=True)
+    # the last wave is the longest prompts' (one wave of them): its first
+    # request's logits are row 0 of the last max_new the engine drew from
+    plen = max(len(r.prompt) for r in reqs)
+    longest = [r for r in reqs if len(r.prompt) == plen]
+    assert len(longest) <= LM_SLOTS and len({r.max_new for r in longest}) == 1
+    long_req = longest[0]
+    steps = seen[-long_req.max_new:]
+    seq = list(long_req.prompt) + list(got[long_req.rid])
+    dec = 0.0
+    for s in range(1, long_req.max_new):
+        full, _ = transformer.forward(values, gcfg, torch.tensor(
+            [seq[:plen + s]], device=dev), kern_attend)
+        dec = max(dec, float((steps[s][0] - full[0, -1]).abs().max()))
+        del full
+    print(f"[lm] gate (a): {long_req.max_new - 1} decode steps of the "
+          f"{len(long_req.prompt)}-token prompt (ring on the local layer) "
+          f"against a full forward: max_abs_err={dec:.3e} (limit "
+          f"{LM_GATE_ATOL})", flush=True)
+    if worst > LM_GATE_ATOL or dec > LM_GATE_ATOL or not same:
+        raise AssertionError("[lm] gate (a) failed")
+    return worst, dec
+
+
+def lm_attention_readings(cfg, waves, dev, reps=LM_REPS):
+    """Flash attention at the waves' prefill shapes (bf16, B x S x H over
+    KV x Dh), local and global, each beside its bound and the plain
+    version; SDPA on the same shapes without the softcap (SDPA has no tanh
+    softcap; the local shapes take a sliding-window mask).  Returns the
+    JSON row of the longest wave's global layer."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(SEED)
+    row = None
+    for n, S, _ in waves:
+        B = min(n, LM_SLOTS)
+        x = [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(
+            dev, torch.bfloat16) for sh in ((B, S, H, Dh), (B, S, KV, Dh),
+                                            (B, S, KV, Dh))]
+        for tag, w in (("local", cfg.window), ("global", 0)):
+            c = cfg.attn_softcap
+            out, ms = timed(lambda: FA.flash_attention(*x, window=w,
+                                                       softcap=c), dev, reps)
+            want, plain_ms = timed(lambda: FA.flash_attention_plain(*x, w, c),
+                                   dev, 1)
+            qt, kt, vt = (t.transpose(1, 2) for t in x)
+            mask = None
+            if w and w < S:
+                i = torch.arange(S, device=dev)
+                mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+            _, lib_ms = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), dev, reps)
+            pairs = B * H * sum(min(i + 1, w or S) for i in range(S))
+            flop = 4 * Dh * pairs
+            nbytes = 2 * 2 * (x[0].numel() + x[1].numel())
+            rtol, atol, rel = ATTN_TOL["bf16"]
+            name = f"flash_attention [lm] B {B} S {S} {tag}"
+            args = (out, want, ms, plain_ms, flop, nbytes)
+            kw = dict(library_ms=lib_ms, rtol=rtol, atol=atol,
+                      peak=PEAK_BF16_TC, rel=rel)
+            if tag == "global" and S == max(s for _, s, _ in waves):
+                res = row = kernel_row(
+                    "flash_attention", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:86", *args, **kw)
+            else:
+                res = check(name, *args, **kw)
+            print(f"[lm] {name} (window {w}, softcap {c}, bf16): {ms:.3f} ms, "
+                  f"bound {res['bound_ms']:.3f} ms ({res['bound_by']}"
+                  f"{attention_bounds(torch.bfloat16, flop, pairs, c)}); "
+                  f"SDPA without the softcap (it has none"
+                  f"{', a window mask' if mask is not None else ', causal'}) "
+                  f"{lib_ms:.3f} ms", flush=True)
+            del out, want
+    return row
+
+
+def lm_layer_attention(cfg, values, reqs, max_seq, dev):
+    """Gate (b)'s attention check: the longest wave's prefill once more
+    with the kernel route recording layer 0's and layer 1's q, k, v; each
+    layer's kernel output held against ``flash_attention_plain`` on them at
+    ATTN_TOL["bf16"]."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    seen = []
+
+    def recording(q, k, v, window, softcap):
+        out = ops.flash_attention(q, k, v, window, softcap)
+        if len(seen) < 2:
+            seen.append((q, k, v, window, softcap, out))
+        return out
+
+    api = lm.build(cfg, device=dev, attention=recording)
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.stack([r.prompt for r in reqs if len(r.prompt) == plen])
+    logits, caches = api.prefill_fn(values, {"tokens": torch.from_numpy(
+        toks[:LM_SLOTS])}, max_seq=max_seq)
+    del logits, caches
+    rtol, atol, rel = ATTN_TOL["bf16"]
+    ok = True
+    for l, (q, k, v, w, c, out) in enumerate(seen):
+        want = FA.flash_attention_plain(q, k, v, w, c)
+        err, close = max_err(out, want, rtol, atol)
+        r = rel_norm_err(out, want)
+        ok = ok and close and r <= rel
+        print(f"[lm] gate (b): layer {l} (window {w}) prefill attention on its "
+              f"own q/k/v {tuple(q.shape)}, kernel vs plain: "
+              f"max_abs_err={err:.3e} rel_norm_err={r:.3e} (rtol {rtol}, "
+              f"atol {atol}, norm {rel})", flush=True)
+    if len(seen) < 2 or not ok:
+        raise AssertionError("[lm] gate (b): a layer's prefill attention "
+                             "disagrees with the plain version")
+
+
+def run_lm(cfg, dev, waves=LM_WAVES, max_seq=LM_MAX_SEQ, reps=LM_REPS):
+    """The [lm] phase at ``cfg``: gate (a), the bf16 main run through
+    ``lm.build`` -> ``ServingEngine.generate`` (its readings and gate (b)),
+    the sampled run, the plain build's tokens, the profiler's view of the
+    longest wave and the attention readings.  Returns the flash-attention
+    JSON row and its launches in the main run."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm, transformer
+    from repro_torch.models.params import tree_leaves
+
+    t_phase = time.perf_counter()
+    lm_gate_a(cfg, waves, max_seq, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    api = lm.build(cfg, device=dev)
+    dtype = transformer.compute_dtype(cfg)
+    values, init_ms = host_ms(lambda: api.init(prng.PRNGKey(LM_INIT_SEED),
+                                               dtype=dtype), dev)
+    n_par = sum(v.numel() for v in tree_leaves(values))
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_par} parameters "
+          f"(param_count {cfg.param_count()}) in {cfg.dtype}; init "
+          f"{init_ms / 1e3:.1f} s (prng.normal in fp32 on the device, cast "
+          f"once); attention route {api.attention}", flush=True)
+    reqs = lm_requests(cfg, waves)
+    log = []
+    eng = lm_engine(instrumented(api, dev, log), values, dev, max_seq)
+    sync(dev)
+    t0 = time.perf_counter()
+    done, launches = path_launches(("flash_attention",),
+                                   lambda: eng.generate(fresh(reqs)))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    n_launch = launches["flash_attention"]
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    tokens = sum(len(r.out) for r in done)
+    pre = [e for e in log if e[0] == "prefill"]
+    dec = [e for e in log if e[0] == "decode"]
+    for kind, ms, b, s in pre:
+        print(f"[lm] prefill of {b} x {s} tokens: {ms:.1f} ms", flush=True)
+    for b in sorted({e[2] for e in dec}):
+        d = [e[1] for e in dec if e[2] == b]
+        print(f"[lm] decode, batch {b}: {len(d)} steps, median "
+              f"{float(np.median(d)):.2f} ms a step (min {min(d):.2f}, max "
+              f"{max(d):.2f})", flush=True)
+    print(f"[lm] main run: {len(done)} requests, {tokens} tokens in "
+          f"{wall:.2f} s ({tokens / wall:.1f} tokens/s); peak memory "
+          f"{peak:.2f} GB; flash_attention launched {n_launch} times",
+          flush=True)
+    want_launch = cfg.n_layers * len({(len(r.prompt), i // LM_SLOTS)
+                                      for i, r in enumerate(reqs)})
+    in_range = all(((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done)
+    print(f"[lm] gate (b): {n_launch} flash launches (want {want_launch}), "
+          f"tokens in [0, vocab) {in_range}, every logit finite", flush=True)
+    if n_launch != want_launch or not in_range:
+        raise AssertionError("[lm] gate (b) failed")
+    lm_layer_attention(cfg, values, reqs, max_seq, dev)
+
+    wave_a = [r for r in reqs if len(r.prompt) == waves[0][1]]
+    sampled = lm_engine(api, values, dev, max_seq, temperature=1.0,
+                        seed=LM_SAMPLE_SEED).generate(fresh(wave_a))
+    greedy = lm_tokens(done)
+    print(f"[lm] wave A sampled at temperature 1.0, seed {LM_SAMPLE_SEED}: "
+          f"first tokens {[int(r.out[0]) for r in sampled]}, share equal to "
+          f"greedy {np.mean([(r.out == greedy[r.rid]).mean() for r in sampled]):.3f}",
+          flush=True)
+    if not all(((r.out >= 0) & (r.out < cfg.vocab)).all() for r in sampled):
+        raise AssertionError("[lm] a sampled token is out of range")
+    plain = lm.build(cfg, device=dev, attention=FA.flash_attention_plain)
+    got_p = lm_tokens(lm_engine(plain, values, dev, max_seq).generate(
+        fresh(reqs)))
+    share = np.mean([(greedy[i] == got_p[i]).mean() for i in greedy])
+    print(f"[lm] bf16 greedy tokens, kernel build vs plain build: share equal "
+          f"{share:.3f} (not gated: the builds round P alike but sum in "
+          f"other orders, and a near tie flips a token)", flush=True)
+    long_req = [r for r in reqs if len(r.prompt) == max(w[1] for w in waves)]
+    report_device_time("[lm] the longest wave (prefill + decode)",
+                       lambda: lm_engine(api, values, dev, max_seq).generate(
+                           fresh(long_req[:LM_SLOTS])),
+                       dev, top=8, share_of="flash_attention")
+    del values, plain, eng
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    row = lm_attention_readings(cfg, waves, dev, reps)
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row, n_launch
+
+
 def attention_bounds(dtype, flop, pairs, softcap):
     """The bf16 settings' second bound: the special-function units, one
     exp2 a pair and, with the softcap, tanhf's exp2 and reciprocal."""
@@ -1878,8 +2244,8 @@ def run_attention(cfg, seq, dev, reps=3):
     ``seq`` tokens: the local layer, the global layer, the global layer
     without softcap (the library's case) in fp32, the local layer and the
     global layer without softcap in bf16 (the latter against SDPA in bf16
-    too).  Returns the fp32 no-softcap row and the kernel's launches on
-    the path."""
+    too).  Returns the kernel's launches over the settings (the JSON row
+    is the [lm] phase's, at the main path's shapes)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1898,7 +2264,6 @@ def run_attention(cfg, seq, dev, reps=3):
                 ("global no softcap bf16", bf16, 0, 0.0)]
     outs, launches = path_launches(("flash_attention",), lambda: [
         FA.flash_attention(*x, window=w, softcap=c) for _, x, w, c in settings])
-    row = None
     for (tag, x, w, c), out in zip(settings, outs):
         dt = x[0].dtype
         rtol, atol, rel = ATTN_TOL["bf16" if dt == torch.bfloat16 else "fp32"]
@@ -1921,18 +2286,12 @@ def run_attention(cfg, seq, dev, reps=3):
         print(f"[attention] {tag} (window {w}, softcap {c}, {dt}): "
               f"{pairs} causal pairs, {flop / 1e9:.1f} GFLOP"
               f"{attention_bounds(dt, flop, pairs, c)}", flush=True)
-        args = (out, want, ms, plain_ms, flop, nbytes)
         peak = PEAK_BF16_TC if dt == torch.bfloat16 else PEAK_FP32
-        if tag == "global no softcap":
-            row = kernel_row("flash_attention", "flash_attention.cu",
-                             "src/repro/kernels/flash_attention.py:86", *args,
-                             library_ms=lib_ms, rtol=rtol, atol=atol, rel=rel)
-        else:
-            check(f"flash_attention {tag}", *args, library_ms=lib_ms,
-                  rtol=rtol, atol=atol, peak=peak, rel=rel)
+        check(f"flash_attention {tag}", out, want, ms, plain_ms, flop, nbytes,
+              library_ms=lib_ms, rtol=rtol, atol=atol, peak=peak, rel=rel)
         del want
     check_attention_ragged(dev)
-    return row, launches
+    return launches
 
 
 def check_attention_ragged(dev):
@@ -1968,10 +2327,12 @@ def check_attention_ragged(dev):
                                          "plain version at a ragged shape")
 
 
-def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
-    """Phases 2-8 on ``dev`` at ``bundle``, image size ``hw``, attention
-    widths ``attn``, ``seq`` tokens and training ``train_kw``; returns the
-    kernel rows of the JSON line."""
+def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN, lm_waves=LM_WAVES,
+        lm_max_seq=LM_MAX_SEQ):
+    """Phases 2-9 on ``dev`` at ``bundle``, image size ``hw``, the LM config
+    ``attn`` (its attention widths for phase 5, ``seq`` tokens; the whole
+    model for ``[lm]``, on ``lm_waves``), training ``train_kw``; returns
+    the kernel rows of the JSON line."""
     from repro_torch import params
     from repro_torch.core import scene
 
@@ -1982,12 +2343,15 @@ def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN):
     rows, launches = check_kernels(field, bundle, cam, dev, reps)
     frame_launches, ref = run_frames(field, bundle, cam, dev)
     vr_row, vr_launches = run_decoupled(field, bundle, cam, ref, dev, reps)
-    fa_row, fa_launches = run_attention(attn, seq, dev, reps)
+    run_attention(attn, seq, dev, reps)
     field_t, scene_t = run_train(bundle, cam, dev, train_kw)
     run_reuse(field_t, scene_t, bundle, dev, hw)
     run_serve(field_t, scene_t, field, bundle, dev, hw)
+    del field, field_t, scene_t
+    fa_row, fa_launches = run_lm(attn, dev, lm_waves, lm_max_seq, reps)
     rows += [vr_row, fa_row]
-    launches.update(**frame_launches, **vr_launches, **fa_launches)
+    launches.update(**frame_launches, **vr_launches,
+                    flash_attention=fa_launches)
     for r in rows:
         r["launches"] = launches[r["name"]]
     return rows

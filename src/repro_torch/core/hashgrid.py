@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import prng
 from ..device import resolve_device
 
 # Instant-NGP's hash primes (Eq. 2 of the ASDR paper / Müller et al. 2022).
@@ -68,17 +69,16 @@ class HashGridConfig:
         return self.n_levels * self.feature_dim
 
 
-def init_hashgrid(cfg: HashGridConfig, generator=None,
+def init_hashgrid(cfg: HashGridConfig, key,
                   device=None) -> torch.Tensor:
     """Uniform(-1e-4, 1e-4) tables, as in Instant-NGP: one stacked
     ``(n_levels, table_size, feature_dim)`` float32 tensor on ``device``
-    (the GPU unless ``device="cpu"``), drawn from ``generator`` (a
-    ``torch.Generator`` on that device).  Dense levels use only their
+    (the GPU unless ``device="cpu"``), ``prng.uniform(key, ...)``: the
+    reference's tables for the same key.  Dense levels use only their
     first ``(res+1)^3`` rows (``storage_utilization``)."""
     dev = resolve_device(device)
     shape = (cfg.n_levels, cfg.table_size, cfg.feature_dim)
-    u = torch.rand(shape, generator=generator, device=dev)
-    return u * 2e-4 - 1e-4
+    return prng.uniform(key, shape, minval=-1e-4, maxval=1e-4, device=dev)
 
 
 def level_indices(coords: torch.Tensor, res: int, dense: bool,

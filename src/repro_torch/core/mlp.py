@@ -8,11 +8,12 @@ the geometry feature, the color network reads [geo, SH(dir)].
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List
 
+import numpy as np
 import torch
 
+from .. import prng
 from ..device import resolve_device
 
 
@@ -53,24 +54,28 @@ def flops_per_sample(cfg: MLPConfig) -> Dict[str, float]:
             "color_fraction": c / (c + d)}
 
 
-def _dense_init(fan_in: int, fan_out: int, generator, device) -> torch.Tensor:
-    """Glorot-uniform (fan_in, fan_out) float32 weights."""
-    scale = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand((fan_in, fan_out), generator=generator, device=device)
-    return u * (2.0 * scale) - scale
+def _dense_init(key, fan_in: int, fan_out: int, device) -> torch.Tensor:
+    """Glorot-uniform (fan_in, fan_out) float32 weights: the reference's
+    float32 scale sqrt(6 / (fan_in + fan_out)) and its uniform draw."""
+    scale = float(np.sqrt(np.float32(6.0 / (fan_in + fan_out))))
+    return prng.uniform(key, (fan_in, fan_out), minval=-scale, maxval=scale,
+                        device=device)
 
 
-def init_mlps(cfg: MLPConfig, generator=None, device=None) -> Dict:
+def init_mlps(cfg: MLPConfig, key, device=None) -> Dict:
     """{"density": [W...], "color": [W...]}, Glorot-uniform, on ``device``
-    (the GPU unless ``device="cpu"``), drawn from ``generator``."""
+    (the GPU unless ``device="cpu"``): ``key`` split in 8 as the reference
+    splits it, the density chain's layers from keys 0-3 and the color
+    chain's from keys 4-7."""
     dev = resolve_device(device)
+    keys = prng.split(key, 8)
 
-    def chain(sizes):
-        return [_dense_init(a, b, generator, dev)
-                for a, b in zip(sizes[:-1], sizes[1:])]
+    def chain(sizes, first):
+        return [_dense_init(keys[first + i], a, b, dev)
+                for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))]
 
-    return {"density": chain(cfg.density_sizes()),
-            "color": chain(cfg.color_sizes())}
+    return {"density": chain(cfg.density_sizes(), 0),
+            "color": chain(cfg.color_sizes(), 4)}
 
 
 def _mlp_forward(ws, x, final_act=None):

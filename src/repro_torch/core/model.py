@@ -20,6 +20,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from .. import prng
 from . import hashgrid, mlp, scene
 
 
@@ -52,12 +53,14 @@ class NGPConfig:
                               max_resolution=256, paper_mlp=paper_mlp)
 
 
-def init_ngp(cfg: NGPConfig, generator=None, device=None) -> Dict:
+def init_ngp(cfg: NGPConfig, key, device=None) -> Dict:
     """A params dict on ``device`` (the GPU unless ``device="cpu"``):
-    tables uniform(-1e-4, 1e-4), Glorot-uniform weights, drawn from
-    ``generator`` (a ``torch.Generator`` on that device)."""
-    return {"grid": hashgrid.init_hashgrid(cfg.grid, generator, device),
-            "mlps": mlp.init_mlps(cfg.net, generator, device)}
+    tables uniform(-1e-4, 1e-4), Glorot-uniform weights; ``key`` (a
+    ``prng`` key) split in two for the grid and the MLPs, as the
+    reference's ``init_ngp`` splits it, so the draws are its own."""
+    k_grid, k_mlps = prng.split(key)
+    return {"grid": hashgrid.init_hashgrid(cfg.grid, k_grid, device),
+            "mlps": mlp.init_mlps(cfg.net, k_mlps, device)}
 
 
 def query_density(params: Dict, cfg: NGPConfig, points):

@@ -10,10 +10,11 @@ no backward and are not on this path.  The trained tensors become an
 trained weights.
 
 The view poses come from numpy ``default_rng(seed)``, as the reference
-draws them; the batch's ray indices and stratification jitter come from
-a ``torch.Generator`` (the reference draws them from ``jax.random``,
-which torch cannot reproduce), and ``make_train_step`` takes them as
-tensors, so a test can hand both frameworks the same ones.
+draws them; the init, the batch's ray indices and the stratification
+jitter follow the reference's key sequence through ``prng`` (its
+``jax.random``), so for the same seed they are the reference's draws, on
+any device.  ``make_train_step`` takes the indices' rays and the jitter
+as tensors.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .. import optim
+from .. import optim, prng
 from ..device import resolve_device
 from . import model as model_lib
 from . import pipeline
@@ -90,22 +91,33 @@ def make_train_step(cfg: NGPTrainConfig, model_cfg: model_lib.NGPConfig,
     return step
 
 
+def batch_draws(key, cfg: NGPTrainConfig, n_rays: int, device):
+    """One step's draws, as the reference's loop makes them: ``key`` split
+    in three (the next key, the batch's, the jitter's), the batch's ray
+    indices ``randint(bkey, (batch_rays,), 0, n_rays)`` and the sampling
+    jitter ``uniform(skey, (batch_rays, n_samples))``.  Returns (key, idx,
+    jitter)."""
+    key, bkey, skey = prng.split(key, 3)
+    idx = prng.randint(bkey, (cfg.batch_rays,), 0, n_rays, device=device)
+    jitter = prng.uniform(skey, (cfg.batch_rays, cfg.n_samples),
+                          device=device)
+    return key, idx, jitter
+
+
 def train_ngp(cfg: NGPTrainConfig = NGPTrainConfig(),
               model_cfg: model_lib.NGPConfig | None = None, device=None,
-              generator: torch.Generator | None = None,
               verbose: bool = True):
-    """Train on ``device`` (the GPU unless ``device="cpu"``), drawing the
-    init, batches and jitter from ``generator`` (default: one on that
-    device seeded with ``cfg.seed``).  Returns (field, model_cfg,
+    """Train on ``device`` (the GPU unless ``device="cpu"``): the init
+    from ``PRNGKey(cfg.seed)`` split in two, then ``batch_draws`` a step,
+    the reference's draws for the same seed.  Returns (field, model_cfg,
     scene_field, history): the trained ``NGPField``, and (step, loss,
     seconds since the first step began) at every ``log_every``-th step
     and the last, each read after the step's work ended."""
     dev = resolve_device(device)
     model_cfg = model_cfg or model_lib.NGPConfig.small()
     field = scene_lib.make_scene(cfg.scene)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-    params = model_lib.init_ngp(model_cfg, generator, dev)
+    key, init_key = prng.split(prng.PRNGKey(cfg.seed))
+    params = model_lib.init_ngp(model_cfg, init_key, dev)
 
     opt_cfg = optim.AdamWConfig(lr=cfg.lr, b2=0.99, eps=1e-15)
     opt_state = optim.adamw_init(params, opt_cfg)
@@ -118,10 +130,7 @@ def train_ngp(cfg: NGPTrainConfig = NGPTrainConfig(),
     history = []
     t0 = time.perf_counter()
     for i in range(cfg.steps):
-        idx = torch.randint(0, n_rays, (cfg.batch_rays,), generator=generator,
-                            device=dev)
-        jitter = torch.rand((cfg.batch_rays, cfg.n_samples),
-                            generator=generator, device=dev)
+        key, idx, jitter = batch_draws(key, cfg, n_rays, dev)
         params, opt_state, loss = step(params, opt_state, o[idx], d[idx],
                                        ref[idx], jitter, sched(i))
         if i % cfg.log_every == 0 or i == cfg.steps - 1:

@@ -9,6 +9,8 @@
   volume_render(sigmas, anchors, deltas, group) -> (rgb (R, 3), acc (R,))
   fused_march_blocks(res, acfg, o, d, bud) -> (rgb, acc, depth, chunks,
                                                ray_chunks)
+  flash_attention(q, k, v, window, softcap) -> (B, S, H, Dh), the LM's
+                                               prefill attention
 
 ``field_fns(field)`` returns a FieldFns whose density and color run the
 CUDA kernels and which carries ``FusedMarchResources``, so
@@ -192,6 +194,9 @@ def field_fns(field) -> FieldFns:
 
     return FieldFns(density=density, color=color, fused=res)
 
+
+# the LM's prefill self-attention (``models/lm.py`` builds on it)
+flash_attention = FA.flash_attention
 
 KERNELS = (HE.hash_encode, FM.density_mlp, FM.color_mlp, FMA.fused_march,
            FM.fused_field, VR.volume_render, FA.flash_attention)

@@ -1,1 +1,2 @@
-"""Launchers (``repro.launch``): ``render_serve`` only so far."""
+"""Launchers (``repro.launch``): ``serve`` (the LM slot engine) and
+``render_serve`` so far."""

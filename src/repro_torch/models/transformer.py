@@ -1,0 +1,327 @@
+"""The decoder-only transformer (``repro.models.transformer``), dense family.
+
+One layer body, eager: layers run in a Python loop (the reference scans
+them), each with its own window from ``cfg.layer_kinds()``, so gemma2's
+alternating and gemma3's 5:1 local:global patterns need no traced window.
+Params are stacked over layers (a leading "layers" dim), as the
+reference's ``model_init`` builds them; a layer is the slice ``[l]``.
+
+Prefill self-attention (no ``extra_mask``) goes through ``attend``, the
+attention function the model was built with (``lm.build``): the flash
+kernel by default, its plain version by request.
+Decode attends over the caches with ``attention.decode_attend``, as the
+reference does.
+
+Only the dense family is ported.  The SSM and hybrid branches (Mamba-2
+SSD), the MoE FFN and the VLM image prefix raise ``NotImplementedError``
+naming their ROADMAP.md item; they never compute something else.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import torch
+
+from .. import prng
+from ..sharding.activation import constrain
+from . import attention as attn
+from . import ffn as ffn_lib
+from . import params as pp
+from .config import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+_WAITS = {"moe": "the MoE FFN (ROADMAP.md §1, LM item 1)",
+          "ssm": "the Mamba-2 SSD layer (ROADMAP.md §1, LM item 2)",
+          "hybrid": "the Mamba-2 SSD layer (ROADMAP.md §1, LM item 2)",
+          "vlm": "the VLM image prefix (ROADMAP.md §1, LM item 3)",
+          "encdec": "the encoder-decoder (ROADMAP.md §1, LM item 4)"}
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    """Raise for a family whose branches are not ported yet."""
+    if cfg.family != "dense" or cfg.prefix_tokens or cfg.parallel_ssm:
+        what = _WAITS.get(cfg.family, f"family {cfg.family!r}")
+        raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+# ------------------------------------------------------------------ layer init
+def _attn_init(key, cfg: ModelConfig, dtype, device):
+    """Projections stored 2D with combined (heads*head_dim) axes, as the
+    reference stores them."""
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    ks = prng.split(key, 4)
+    kw = dict(dtype=dtype, device=device)
+    p = {
+        "wq": pp.dense_init(ks[0], (d, H * Dh), ("d_model", "heads"), **kw),
+        "wk": pp.dense_init(ks[1], (d, KV * Dh), ("d_model", "kv_heads"), **kw),
+        "wv": pp.dense_init(ks[2], (d, KV * Dh), ("d_model", "kv_heads"), **kw),
+        "wo": pp.dense_init(ks[3], (H * Dh, d), ("heads", "d_model"), **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = pp.zeros_init((Dh,), (None,), device=device)
+        p["k_norm"] = pp.zeros_init((Dh,), (None,), device=device)
+    return p
+
+
+def layer_init(key, cfg: ModelConfig, moe: bool, dtype=torch.float32,
+               device=None):
+    """One layer's P tree: its matrices drawn in float32 and stored in
+    ``dtype``, its norms' scales in float32 (the reference reads them in
+    float32)."""
+    require_dense(cfg)
+    if moe:
+        raise NotImplementedError(f"{cfg.name}: {_WAITS['moe']} is not "
+                                  f"ported yet")
+    d = cfg.d_model
+    ks = prng.split(key, 4)
+    p: Dict[str, Any] = {"pre_attn_norm": pp.zeros_init((d,), ("d_model",),
+                                                        device=device)}
+    p["attn"] = _attn_init(ks[0], cfg, dtype, device)
+    if cfg.post_norms:
+        p["post_attn_norm"] = pp.zeros_init((d,), ("d_model",), device=device)
+    if cfg.d_ff > 0:
+        p["pre_ffn_norm"] = pp.zeros_init((d,), ("d_model",), device=device)
+        p["ffn"] = ffn_lib.ffn_init(ks[2], d, cfg.d_ff, dtype=dtype,
+                                    device=device)
+        if cfg.post_norms:
+            p["post_ffn_norm"] = pp.zeros_init((d,), ("d_model",),
+                                               device=device)
+    return p
+
+
+def model_init(key, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """Returns (values, axes): stacked-layer params, the reference's for
+    the same key.  Matrices are stored in ``dtype`` (float32, the
+    reference's master weights, by default), each drawn in float32 and
+    cast once; layers are drawn one at a time into the stacked tensors, so
+    the init holds one layer beyond the model.  On the meta device nothing
+    is drawn (``abstract``)."""
+    require_dense(cfg)
+    ks = prng.split(key, cfg.n_layers + 3)
+    tree: Dict[str, Any] = {
+        "embed": pp.embed_init(ks[0], cfg.padded_vocab, cfg.d_model,
+                               dtype=dtype, device=device),
+        "final_norm": pp.zeros_init((cfg.d_model,), ("d_model",),
+                                    device=device),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = pp.dense_init(
+            ks[1], (cfg.d_model, cfg.padded_vocab), ("d_model", "vocab"),
+            dtype=dtype, device=device)
+    stacked = layer_axes = None
+    for l in range(cfg.n_layers):
+        vals, axes = pp.split(layer_init(ks[3 + l], cfg, moe=False,
+                                         dtype=dtype, device=device))
+        if stacked is None:
+            layer_axes = axes
+            stacked = pp.tree_map(lambda v: v.new_empty((cfg.n_layers,)
+                                                        + tuple(v.shape)), vals)
+        flat_s, flat_v = pp.tree_leaves(stacked), pp.tree_leaves(vals)
+        for s, v in zip(flat_s, flat_v):
+            s[l].copy_(v)
+        del vals, flat_v
+    stacked_axes = pp.tree_map(lambda a: ("layers",) + a, layer_axes,
+                               is_leaf=lambda x: isinstance(x, tuple))
+    top_vals, top_axes = pp.split(tree)
+    return ({**top_vals, "layers": stacked},
+            {**top_axes, "layers": stacked_axes})
+
+
+# --------------------------------------------------------------- layer forward
+def _attention_block(p, x, cfg: ModelConfig, window: int, positions,
+                     attend: Callable, extra_mask=None, chunk: int = 1024):
+    """x (B,S,D) -> (attention output (B,S,D), (k, v)).  Self-attention
+    without ``extra_mask`` goes through ``attend(q, k, v, window,
+    softcap)``; with one (which the kernel does not take) through
+    ``attend_chunked``."""
+    B, S, _ = x.shape
+    H, Dh, KV = cfg.n_heads, cfg.resolved_head_dim, cfg.n_kv_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, KV, Dh)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, KV, Dh)
+    if cfg.qk_norm:
+        q = pp.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = pp.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = attn.apply_rope(q, positions[None], cfg.rope_theta)
+    k = attn.apply_rope(k, positions[None], cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads_act", None))
+    k = constrain(k, ("batch", "seq", "heads_act", None))
+    if extra_mask is None:
+        out = attend(q, k, v, window, cfg.attn_softcap)
+    else:
+        out = attn.attend_chunked(q, k, v, positions, positions, window,
+                                  cfg.attn_softcap, min(chunk, S), extra_mask)
+    out = out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
+    return out, (k, v)
+
+
+def _ffn_block(p, x, cfg: ModelConfig):
+    h2 = pp.rms_norm(x, p["pre_ffn_norm"], cfg.norm_eps)
+    f = ffn_lib.ffn_apply(p["ffn"], h2, cfg.act)
+    if cfg.post_norms:
+        f = pp.rms_norm(f, p["post_ffn_norm"], cfg.norm_eps)
+    return x + f
+
+
+def layer_apply(p, x, cfg: ModelConfig, window: int, positions,
+                attend: Callable, extra_mask=None, collect_kv: bool = False):
+    """One layer.  Returns (x, (k, v) or None): the cache material only
+    when ``collect_kv`` (prefill)."""
+    h = pp.rms_norm(x, p["pre_attn_norm"], cfg.norm_eps)
+    a_out, kv = _attention_block(p["attn"], h, cfg, window, positions,
+                                 attend, extra_mask=extra_mask)
+    if cfg.post_norms:
+        a_out = pp.rms_norm(a_out, p["post_attn_norm"], cfg.norm_eps)
+    x = x + a_out
+    if cfg.d_ff > 0:
+        x = _ffn_block(p, x, cfg)
+    x = constrain(x, ("batch", "seq", "embed_act"))
+    return x, (kv if collect_kv else None)
+
+
+# -------------------------------------------------------------------- forward
+def embed_tokens(values, cfg: ModelConfig, tokens):
+    """The embedding rows (times sqrt(d_model) in float32 for the gemma
+    family), in the compute dtype.  With float32 rows this is the
+    reference's arithmetic; rows stored in bf16 are rounded once before
+    the scale (the reference scales its float32 master rows)."""
+    x = values["embed"][tokens]
+    if cfg.embed_scale:
+        x = x.float() * float(torch.tensor(math.sqrt(cfg.d_model),
+                                           dtype=torch.float32))
+    return x.to(compute_dtype(cfg))
+
+
+def unembed(values, cfg: ModelConfig, x):
+    """Final norm, the (tied) head in the compute dtype, logits in float32
+    softcapped in place, vocab padding masked to -1e30."""
+    x = pp.rms_norm(x, values["final_norm"], cfg.norm_eps)
+    head = values.get("lm_head")
+    if head is None:
+        head = values["embed"].T
+    logits = torch.matmul(x, head.to(x.dtype)).float()
+    if cfg.final_softcap:    # softcap's ops, in place: the logits are fresh
+        logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab:
+        logits[..., cfg.vocab:] = -1e30
+    return constrain(logits, ("batch", "seq", "vocab_act"))
+
+
+def layer_slice(values, l: int):
+    return pp.tree_map(lambda v: v[l], values["layers"])
+
+
+def forward(values, cfg: ModelConfig, tokens, attend: Callable,
+            img_embeds=None, remat_policy: Optional[str] = None,
+            collect_kv: bool = False):
+    """Train/prefill forward over tokens (B, S).  Returns (logits, kvs):
+    kvs a list of each layer's (k, v) when ``collect_kv``, else None.
+    ``remat_policy`` is the reference's jit memory policy; eager torch
+    recomputes nothing, and the values do not depend on it."""
+    require_dense(cfg)
+    del img_embeds, remat_policy
+    x = embed_tokens(values, cfg, tokens)
+    S = x.shape[1]
+    x = constrain(x, ("batch", "seq", "embed_act"))
+    positions = torch.arange(S, dtype=torch.int64, device=x.device)
+    kvs = [] if collect_kv else None
+    for l, window in enumerate(cfg.layer_kinds()):
+        x, kv = layer_apply(layer_slice(values, l), x, cfg, window, positions,
+                            attend, collect_kv=collect_kv)
+        if collect_kv:
+            kvs.append(kv)
+    return unembed(values, cfg, x), kvs
+
+
+# ------------------------------------------------------------------- serving
+class LayerCache(NamedTuple):
+    kv: Optional[attn.KVCache]
+    ssm: Optional[Any]          # the SSM state, for the families to come
+
+
+def init_layer_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device=None) -> List[LayerCache]:
+    """Per-layer decode caches: rings of ``window`` slots for local layers
+    shorter than ``max_seq``, linear caches of ``max_seq`` otherwise."""
+    require_dense(cfg)
+    KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    caches = []
+    for window in cfg.layer_kinds():
+        slots = window if window and window < max_seq else max_seq
+        caches.append(LayerCache(
+            kv=attn.init_cache(batch, slots, KV, Dh, dtype, device), ssm=None))
+    return caches
+
+
+def decode_step(values, cfg: ModelConfig, caches: List[LayerCache], token,
+                pos: int):
+    """One decode step: token (B, 1) at position ``pos``.  Returns (logits
+    (B, 1, V), caches), each layer's cache written in place."""
+    require_dense(cfg)
+    x = embed_tokens(values, cfg, token)
+    x = constrain(x, ("batch", None, "embed_act"))
+    B = x.shape[0]
+    H, Dh, KV = cfg.n_heads, cfg.resolved_head_dim, cfg.n_kv_heads
+    pos_arr = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    for l, window in enumerate(cfg.layer_kinds()):
+        p = layer_slice(values, l)
+        pa = p["attn"]
+        h = pp.rms_norm(x, p["pre_attn_norm"], cfg.norm_eps)
+        q = (h @ pa["wq"].to(h.dtype)).reshape(B, 1, H, Dh)
+        k = (h @ pa["wk"].to(h.dtype)).reshape(B, 1, KV, Dh)
+        v = (h @ pa["wv"].to(h.dtype)).reshape(B, 1, KV, Dh)
+        if cfg.qk_norm:
+            q = pp.rms_norm(q, pa["q_norm"], cfg.norm_eps)
+            k = pp.rms_norm(k, pa["k_norm"], cfg.norm_eps)
+        q = attn.apply_rope(q, pos_arr, cfg.rope_theta)
+        k = attn.apply_rope(k, pos_arr, cfg.rope_theta)
+        kv = caches[l].kv
+        ring = attn.is_ring(window, kv.k.shape[1])
+        attn.cache_update(kv, k, v, pos, ring)
+        a = attn.decode_attend(q, kv, pos, ring, KV, window=window,
+                               softcap_val=cfg.attn_softcap)
+        a_out = a.reshape(B, 1, H * Dh) @ pa["wo"].to(h.dtype)
+        if cfg.post_norms:
+            a_out = pp.rms_norm(a_out, p["post_attn_norm"], cfg.norm_eps)
+        x = x + a_out
+        if cfg.d_ff > 0:
+            x = _ffn_block(p, x, cfg)
+    return unembed(values, cfg, x), caches
+
+
+def prefill(values, cfg: ModelConfig, tokens, attend: Callable,
+            img_embeds=None, max_seq: Optional[int] = None):
+    """Prefill forward: (logits, per-layer caches ready for decode).
+
+    Local layers shorter than the prompt hand their last ``window`` keys
+    over in the ring layout (slot s = the latest position with
+    pos % W == s); the others are zero-padded out to ``max_seq`` slots so
+    decode has room to append (``transformer.py:346-383``).
+    """
+    logits, kvs = forward(values, cfg, tokens, attend, img_embeds=img_embeds,
+                          collect_kv=True)
+    S = logits.shape[1]
+    max_seq = max_seq or S
+    caches: List[LayerCache] = []
+    for window in cfg.layer_kinds():
+        k_l, v_l = kvs.pop(0)          # each layer's K/V freed as it goes
+        k_l = k_l.reshape(k_l.shape[0], S, -1)               # flat storage
+        v_l = v_l.reshape(v_l.shape[0], S, -1)
+        if window and window < S:
+            start = S - window
+            kv = attn.KVCache(torch.roll(k_l[:, start:], start % window, 1),
+                              torch.roll(v_l[:, start:], start % window, 1))
+        elif max_seq > S:
+            pad = (0, 0, 0, max_seq - S)
+            kv = attn.KVCache(torch.nn.functional.pad(k_l, pad),
+                              torch.nn.functional.pad(v_l, pad))
+        else:
+            kv = attn.KVCache(k_l, v_l)
+        caches.append(LayerCache(kv=kv, ssm=None))
+    return logits, caches

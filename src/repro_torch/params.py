@@ -1,4 +1,4 @@
-"""Carry NGP weights across from the JAX package's layout.
+"""Carry NGP and LM weights across from the JAX package's layout.
 
 The reference keeps a field's parameters as the pytree
 ``{"grid": (L, T, F), "mlps": {"density": [W...], "color": [W...]}}``
@@ -11,6 +11,9 @@ render in the reference.
 classes are mapped onto the port's dataclasses of the same fields, so the
 reference package is never imported.  ``random_params`` draws a pytree in
 that layout from a numpy seed (Glorot-uniform weights, uniform tables).
+``lm_from_jax_values`` / ``lm_to_jax_values`` carry an LM's values tree
+(``models.lm``'s ``api.init``) across both ways, so both packages run on
+one set of weights.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from .core import hashgrid, mlp
 from .core.model import NGPConfig, NGPField
 from .device import resolve_device
+from .models.params import tree_leaves
 
 # The reference's config classes, by (module, name), and their stand-ins.
 _CONFIG_CLASSES = {
@@ -106,3 +110,34 @@ def random_params(cfg: NGPConfig, seed: int, table_scale: float = 1e-4) -> Dict:
     return {"grid": grid,
             "mlps": {"density": chain(cfg.net.density_sizes()),
                      "color": chain(cfg.net.color_sizes())}}
+
+
+def lm_from_jax_values(values, cfg, device=None, dtype=torch.float32) -> Dict:
+    """The reference LM's values tree (``api.init``'s: dicts of arrays,
+    layers stacked on axis 0, as ``model_init`` builds them; any leaf
+    ``np.asarray`` reads) -> the port's params on ``device`` (the GPU
+    unless ``device="cpu"``): matrices in ``dtype``, 1-D scales (the
+    norms) in float32, as ``models.transformer.model_init`` stores them."""
+    dev = resolve_device(device)
+    n_layers = {np.shape(v)[0] for v in tree_leaves(values["layers"])}
+    if n_layers != {cfg.n_layers}:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers, the values "
+                         f"stack {sorted(n_layers)}")
+
+    def tree(v, stacked):
+        if isinstance(v, dict):
+            return {k: tree(x, stacked or k == "layers") for k, x in v.items()}
+        a = np.asarray(v)
+        t = torch.from_numpy(np.array(a, np.float32, copy=True))
+        matrix = a.ndim - int(stacked) >= 2
+        return t.to(dev, dtype if matrix else torch.float32)
+
+    return tree(values, False)
+
+
+def lm_to_jax_values(values) -> Dict:
+    """The port's LM params -> the reference's values tree as float32
+    numpy arrays (the inverse of ``lm_from_jax_values``)."""
+    if isinstance(values, dict):
+        return {k: lm_to_jax_values(v) for k, v in values.items()}
+    return values.detach().float().cpu().numpy()

@@ -39,6 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import prng
 from ..core import scene
 from ..core.pipeline import ASDRConfig
 from ..framecache import probe as fc_probe
@@ -533,14 +534,12 @@ class Slot:
 def probe_jitter_for(rcfg: RenderServeConfig, req: RenderRequest,
                      acfg: ASDRConfig, device):
     """The probe's stratified-sampling draws for a seeded request: (probe
-    rays, ``ns_full``) uniforms from a generator seeded ``probe_seed +
-    rid`` on ``device`` (the reference draws from ``PRNGKey(probe_seed +
-    rid)``: other numbers, the same role).  None with ``probe_seed`` None,
-    the midpoint probe."""
+    rays, ``ns_full``) uniforms of ``PRNGKey(probe_seed + rid)`` made on
+    ``device``, the draws of the reference's ``probe_key_for``.  None with
+    ``probe_seed`` None, the midpoint probe."""
     if rcfg.probe_seed is None:
         return None
     st = acfg.probe_stride
     n = (-(-req.cam.height // st)) * (-(-req.cam.width // st))
-    gen = torch.Generator(device=device).manual_seed(rcfg.probe_seed
-                                                      + req.rid)
-    return torch.rand((n, acfg.ns_full), generator=gen, device=device)
+    return prng.uniform(prng.PRNGKey(rcfg.probe_seed + req.rid),
+                        (n, acfg.ns_full), device=device)

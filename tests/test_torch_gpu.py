@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import framecache, optim, params, scenecache
+from repro_torch import framecache, optim, params, prng, scenecache
 from repro_torch.configs import ingp_asdr
 from repro_torch.core import model, pipeline, rendering, scene, train
 from repro_torch.kernels import flash_attention as FA
@@ -239,8 +239,7 @@ def test_training_steps_match_the_cpu(cuda):
     entry whose gradient is within rounding of 0 by about lr either way;
     the gather's backward sums in another order on the card)."""
     cpu = torch.device("cpu")
-    params = model.init_ngp(TRAIN_MODEL, torch.Generator().manual_seed(0),
-                            device=cpu)
+    params = model.init_ngp(TRAIN_MODEL, prng.PRNGKey(0), device=cpu)
     rays = train._make_view_rays(TRAIN_CFG, scene.make_scene("lego"), cpu)
     rng = np.random.default_rng(0)
     batches = [(torch.from_numpy(rng.integers(0, rays[0].shape[0], 256)),
@@ -297,8 +296,8 @@ def test_kernel_field_of_a_trained_field_matches_plain(cuda):
     torch.testing.assert_close(geo_k, geo_p, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(kern.color(geo_p, dirs), rgb_p, rtol=1e-4,
                                atol=1e-5)
-    init = model.init_ngp(TRAIN_MODEL, torch.Generator(cuda).manual_seed(
-        TRAIN_CFG.seed), device=cuda)
+    init = model.init_ngp(TRAIN_MODEL, prng.split(prng.PRNGKey(
+        TRAIN_CFG.seed))[1], device=cuda)
     stale = ops.field_fns(model.NGPField.from_params(TRAIN_MODEL, init))
     assert not torch.allclose(stale.color(geo_p, dirs), rgb_p, rtol=1e-4,
                               atol=1e-5)
@@ -500,3 +499,78 @@ def test_padded_batch_rows_equal_an_unpadded_launch(n_real, cuda):
         assert np.array_equal(acc, alone[1][i].cpu().numpy())
         assert np.array_equal(depth, alone[2][i].cpu().numpy())
         assert int(chunks) == int(alone[3][i])
+
+
+def test_prng_draws_on_the_card_equal_the_cpu(cuda):
+    """``repro_torch.prng`` gives the same bits on the card as on the CPU:
+    bits, uniform and randint (and so the inits, batches and probe draws),
+    normal and categorical, across a chunk boundary."""
+    key = prng.fold_in(prng.PRNGKey(17), 3)
+    n = prng.CHUNK + 4099
+    for fn in (lambda dev: prng.bits(key, (n,), dev),
+               lambda dev: prng.uniform(key, (n,), minval=-3.5, maxval=7.25,
+                                        device=dev),
+               lambda dev: prng.randint(key, (5001,), -5, 2 ** 24 + 17,
+                                        device=dev),
+               lambda dev: prng.normal(key, (n,), device=dev),
+               lambda dev: prng.gumbel(key, (64, 1000), dev)):
+        assert torch.equal(fn(cuda).cpu(), fn("cpu"))
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 256000)).astype(np.float32))
+    assert torch.equal(prng.categorical(key, logits.to(cuda)).cpu(),
+                       prng.categorical(key, logits))
+    out = torch.empty((3000, 700), dtype=torch.bfloat16, device=cuda)
+    prng.normal_into(out, key, 0.02)
+    assert torch.equal(out.cpu(), (prng.normal(key, (3000, 700)) * 0.02).to(
+        torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_lm_kernel_build_matches_plain(dtype, cuda):
+    """gemma2's smoke config built on the flash kernel against the same
+    weights built on ``flash_attention_plain``: prefill logits within
+    atol 1e-3 (float32) or 5e-2 (bf16), every decode step's logits too,
+    and (float32) the greedy tokens equal."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    cfg = dataclasses.replace(configs.get_smoke("gemma2_27b"), dtype=dtype)
+    kern = lm.build(cfg, device=cuda)
+    plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
+    values = kern.init(prng.PRNGKey(0), dtype=getattr(torch, dtype))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 40)))
+    atol = 1e-3 if dtype == "float32" else 5e-2
+    ops.reset_launch_counts()
+    lk, ck = kern.prefill_fn(values, {"tokens": toks}, max_seq=48)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    lp, cp = plain.prefill_fn(values, {"tokens": toks}, max_seq=48)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=atol)
+    tok = torch.argmax(lp[:, -1], dim=-1)[:, None]
+    for pos in range(40, 46):
+        sk, ck = kern.decode_fn(values, ck, tok, pos)
+        sp, cp = plain.decode_fn(values, cp, tok, pos)
+        torch.testing.assert_close(sk, sp, rtol=0, atol=atol)
+        tok = torch.argmax(sp[:, 0], dim=-1)[:, None]
+    if dtype == "float32":
+        reqs = [engine.Request(rid=i, prompt=toks[i].numpy(), max_new=6)
+                for i in range(2)]
+        outs = [{r.rid: r.out for r in engine.ServingEngine(
+            api, values, engine.ServeConfig(max_seq=48), device=cuda)
+            .generate([dataclasses.replace(r) for r in reqs])}
+            for api in (kern, plain)]
+        for rid in outs[0]:
+            np.testing.assert_array_equal(outs[0][rid], outs[1][rid])
+
+
+def test_build_refuses_a_head_dim_beyond_the_kernel(cuda):
+    """On the card the default route is the flash kernel or nothing:
+    gemma3-12b's head_dim 256 raises at build time, naming its ROADMAP
+    item; a build that passes the plain function explicitly goes on."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get("gemma3-12b")
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        lm.build(cfg, device=cuda)
+    plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
+    assert plain.attention == "flash_attention_plain"

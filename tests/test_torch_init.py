@@ -1,9 +1,9 @@
 """Port parity: the NGP's initialisation, the hash grid's extras and the
-params bridge against the reference.  ``jax.random`` cannot be matched
-value for value, so the init is held on shapes, dtypes, ranges and
-moments (each leaf's mean and variance within six standard errors of the
-uniform law's, a band the reference's own draw is held to as well);
-the rest exactly, or to the port's float32 contract (rtol 1e-4 /
+params bridge against the reference.  The init draws through
+``repro_torch.prng`` (the reference's ``jax.random``), so for the same
+key it equals the reference's init value for value; each leaf is also
+held to its uniform law (mean and variance within six standard errors).
+The rest exactly, or to the port's float32 contract (rtol 1e-4 /
 atol 1e-5) where it renders."""
 
 import jax
@@ -17,6 +17,7 @@ from repro.core import mlp as jmlp
 from repro.core import model as jmodel
 from repro.core import scene as jsc
 from repro_torch import params as tparams
+from repro_torch import prng
 from repro_torch.core import hashgrid as thg
 from repro_torch.core import mlp as tmlp
 from repro_torch.core import model as tmodel
@@ -60,8 +61,7 @@ def _assert_uniform(x, half):
 def test_init_ngp_matches_reference_layout_and_law(name):
     jcfg = CONFIGS[name]
     jp = jmodel.init_ngp(jax.random.PRNGKey(0), jcfg)
-    tp = tmodel.init_ngp(_port(jcfg), torch.Generator().manual_seed(0),
-                         device="cpu")
+    tp = tmodel.init_ngp(_port(jcfg), prng.PRNGKey(0), device="cpu")
     assert sorted(tp) == ["grid", "mlps"]
     assert sorted(tp["mlps"]) == ["color", "density"]
     want, got = _leaves(jp), _leaves(tp)
@@ -69,25 +69,27 @@ def test_init_ngp_matches_reference_layout_and_law(name):
                                                   for g in got]
     for w, g, half in zip(want, got, _bounds(jcfg)):
         _assert_uniform(w, half)
-        _assert_uniform(g, half)
+        np.testing.assert_array_equal(g, w)
 
 
 def test_init_parts_match_reference_shapes():
     jcfg = CONFIGS["small_paper_mlp"]
     tcfg = _port(jcfg)
-    gen = torch.Generator().manual_seed(1)
-    grid = thg.init_hashgrid(tcfg.grid, gen, device="cpu")
+    key = prng.PRNGKey(1)
+    grid = thg.init_hashgrid(tcfg.grid, key, device="cpu")
     jgrid = jhg.init_hashgrid(jax.random.PRNGKey(1), jcfg.grid)
     assert (tuple(grid.shape), grid.dtype) == (jgrid.shape, torch.float32)
-    mlps = tmlp.init_mlps(tcfg.net, gen, device="cpu")
+    np.testing.assert_array_equal(grid.numpy(), np.asarray(jgrid))
+    mlps = tmlp.init_mlps(tcfg.net, key, device="cpu")
     jmlps = jmlp.init_mlps(jax.random.PRNGKey(1), jcfg.net)
     for k in ("density", "color"):
         assert [tuple(w.shape) for w in mlps[k]] == [w.shape for w in jmlps[k]]
-    w = tmlp._dense_init(31, 128, gen, "cpu")
+        for w, jw in zip(mlps[k], jmlps[k]):
+            np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    w = tmlp._dense_init(prng.PRNGKey(2), 31, 128, "cpu")
     _assert_uniform(w.numpy(), np.sqrt(6.0 / 159))
-    # one generator, one seed: the same draw
-    again = thg.init_hashgrid(tcfg.grid, torch.Generator().manual_seed(1),
-                              device="cpu")
+    # one key: the same draw
+    again = thg.init_hashgrid(tcfg.grid, prng.PRNGKey(1), device="cpu")
     assert torch.equal(grid, again)
 
 
@@ -96,9 +98,9 @@ def test_entry_points_default_to_the_gpu():
         pytest.skip("a CUDA device is present")
     tcfg = _port(CONFIGS["small"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tmodel.init_ngp(tcfg)
-    field = tmodel.NGPField.from_params(tcfg, tmodel.init_ngp(tcfg,
-                                                              device="cpu"))
+        tmodel.init_ngp(tcfg, prng.PRNGKey(0))
+    field = tmodel.NGPField.from_params(tcfg, tmodel.init_ngp(
+        tcfg, prng.PRNGKey(0), device="cpu"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmodel.render_image(field, tsc.look_at_camera(4, 4, 0.7, 0.5))
 
@@ -171,7 +173,7 @@ def test_params_round_trip_is_exact():
 
 def test_from_params_detaches():
     tcfg = _port(CONFIGS["small"])
-    p = tmodel.init_ngp(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    p = tmodel.init_ngp(tcfg, prng.PRNGKey(0), device="cpu")
     p["grid"].requires_grad_()
     field = tmodel.NGPField.from_params(tcfg, p)
     assert not any(b.requires_grad for b in field.buffers())

@@ -1,0 +1,191 @@
+"""Port parity: the LM configs, params and the dense transformer
+(``repro_torch.configs``, ``models.config``, ``models.params``,
+``models.transformer``, ``models.lm``) against the reference.
+
+All ten configs (and their ``SMOKE``) equal the reference's field by
+field, with ``layer_kinds`` and ``param_count``.  For the four dense smoke
+archs at float32: ``api.init(PRNGKey(0))`` equals the reference's value
+for value (the draws are ``repro_torch.prng``'s); ``forward`` logits and
+``loss_fn`` on the carried-across values are within rtol 1e-4 / atol 1e-5
+of the reference's; prefill plus decode at a prompt longer than the smoke
+window (8, so local layers decode through the ring) equals a full
+forward.  The reference is called once per arch (module fixtures)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro_torch.configs as tconfigs
+from repro.models import config as jconfig
+from repro.models import lm as jlm
+from repro.models import transformer as jtfm
+from repro_torch import params as tparams
+from repro_torch import prng
+from repro_torch.models import config as tconfig
+from repro_torch.models import lm as tlm
+from repro_torch.models import params as tpp
+from repro_torch.models import transformer as ttfm
+
+RTOL, ATOL = 1e-4, 1e-5
+DENSE = ["gemma2_27b", "minitron_8b", "qwen3_14b", "gemma3_12b"]
+PROMPT, NEW = 12, 4             # a prompt longer than the smoke window (8)
+
+
+def _fields(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_config_equals_reference(arch):
+    for get in ("get", "get_smoke"):
+        want, got = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
+        assert _fields(got) == _fields(want)
+        assert got.layer_kinds() == want.layer_kinds()
+        assert got.param_count() == want.param_count()
+        assert got.active_param_count() == want.active_param_count()
+        assert (got.resolved_head_dim, got.padded_vocab) == (
+            want.resolved_head_dim, want.padded_vocab)
+
+
+def test_registry_and_shapes_equal_reference():
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    assert tconfigs.CANONICAL == jconfigs.CANONICAL
+    assert tconfigs.ALIAS == jconfigs.ALIAS
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    assert tconfigs.get("gemma2-27b") == tconfigs.get("gemma2_27b")
+    assert {k: dataclasses.astuple(v) for k, v in tconfig.SHAPES.items()} == {
+        k: dataclasses.astuple(v) for k, v in jconfig.SHAPES.items()}
+    assert tconfigs.get("gemma2-27b").param_count() == 27_227_123_712
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def arch(request):
+    """Both packages' APIs at an arch's smoke config (float32), the
+    reference's params, and its logits and loss on seeded tokens."""
+    name = request.param
+    jc = dataclasses.replace(jconfigs.get_smoke(name), dtype="float32")
+    tc = dataclasses.replace(tconfigs.get_smoke(name), dtype="float32")
+    japi = jlm.build(jc, remat_policy=None)
+    tapi = tlm.build(tc, remat_policy=None, device="cpu")
+    jv = japi.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jc.vocab, (2, PROMPT + NEW)).astype(np.int32)
+    jlogits, _ = jax.jit(lambda v, t: jtfm.forward(v, jc, t))(
+        jv, jnp.asarray(toks))
+    jloss = japi.loss_fn(jv, {"tokens": jnp.asarray(toks)})
+    return dict(name=name, jc=jc, tc=tc, japi=japi, tapi=tapi, jv=jv,
+                toks=toks, jlogits=np.asarray(jlogits), jloss=float(jloss))
+
+
+def test_init_equals_reference(arch):
+    tv = arch["tapi"].init(prng.PRNGKey(0))
+    want = jax.tree.leaves(arch["jv"])
+    got = tpp.tree_leaves(tv)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_forward_and_loss_match(arch):
+    tv = tparams.lm_from_jax_values(arch["jv"], arch["tc"], device="cpu")
+    attend = tlm._route(arch["tc"], None, torch.device("cpu"))[0]
+    logits, _ = ttfm.forward(tv, arch["tc"], torch.from_numpy(arch["toks"]),
+                             attend)
+    np.testing.assert_allclose(logits.numpy(), arch["jlogits"], rtol=RTOL,
+                               atol=ATOL)
+    loss = arch["tapi"].loss_fn(tv, {"tokens": arch["toks"]})
+    np.testing.assert_allclose(float(loss), arch["jloss"], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_prefill_then_decode_equals_forward(arch):
+    """Prefill the first PROMPT tokens, then decode the next NEW one at a
+    time (teacher-forced): each step's logits equal the reference forward's
+    at that position; local layers run on rings of 8 slots."""
+    tc, toks = arch["tc"], arch["toks"]
+    tv = tparams.lm_from_jax_values(arch["jv"], tc, device="cpu")
+    logits, caches = arch["tapi"].prefill_fn(
+        tv, {"tokens": toks[:, :PROMPT]}, max_seq=PROMPT + NEW)
+    np.testing.assert_allclose(logits.numpy(), arch["jlogits"][:, :PROMPT],
+                               rtol=RTOL, atol=ATOL)
+    slots = {c.kv.k.shape[1] for c, w in zip(caches, tc.layer_kinds()) if w}
+    assert slots <= {tc.window}
+    for t in range(PROMPT, PROMPT + NEW):
+        step, caches = arch["tapi"].decode_fn(tv, caches, toks[:, t:t + 1], t)
+        np.testing.assert_allclose(step[:, 0].numpy(), arch["jlogits"][:, t],
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_bf16_storage_is_the_float32_draw_cast_once():
+    """``init(key, bfloat16)`` stores each matrix as the float32 draw cast
+    once, the norms' scales in float32; the values carry back to the
+    reference's layout."""
+    tc = dataclasses.replace(tconfigs.get_smoke("gemma2_27b"), n_layers=2)
+    api = tlm.build(tc, device="cpu")
+    v32 = api.init(prng.PRNGKey(1))
+    v16 = api.init(prng.PRNGKey(1), dtype=torch.bfloat16)
+    for a, b in zip(tpp.tree_leaves(v32), tpp.tree_leaves(v16)):
+        want = a.to(torch.bfloat16) if a.dim() - (a.shape[0] == 2) >= 2 else a
+        assert b.dtype == want.dtype and torch.equal(b, want)
+    back = tparams.lm_to_jax_values(v32)
+    again = tparams.lm_from_jax_values(back, tc, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tpp.tree_leaves(v32),
+                                                 tpp.tree_leaves(again)))
+
+
+def test_abstract_and_specs_match_reference_shapes():
+    jc, tc = jconfigs.get("gemma2-27b"), tconfigs.get("gemma2-27b")
+    japi, tapi = jlm.build(jc), tlm.build(tc, device="cpu")
+    (jshapes, jaxes), (tshapes, taxes) = japi.abstract(), tapi.abstract()
+    assert [x.shape for x in jax.tree.leaves(jshapes)] == [
+        tuple(x.shape) for x in tpp.tree_leaves(tshapes)]
+    assert all(x.device.type == "meta" for x in tpp.tree_leaves(tshapes))
+    assert tpp.tree_leaves(taxes) == [tuple(a) for a in jax.tree.leaves(
+        jaxes, is_leaf=lambda x: isinstance(x, tuple))]
+    jspecs = japi.decode_cache_specs(4, 4648)
+    tspecs = tapi.decode_cache_specs(4, 4648)
+    assert [c.kv.k.shape for c in jspecs] == [tuple(c.kv.k.shape)
+                                              for c in tspecs]
+    cell = jconfig.SHAPES["prefill_32k"]
+    assert tuple(tapi.input_specs(cell)["tokens"].shape) == \
+        japi.input_specs(cell)["tokens"].shape
+    assert tapi.input_axes() == japi.input_axes()
+    assert [tuple(c.kv.k) for c in tapi.decode_cache_axes(4, 64)] == [
+        tuple(c.kv.k) for c in japi.decode_cache_axes(4, 64)]
+
+
+def test_routes_and_families():
+    """The kernel route by default (on the CPU its plain version, at any
+    head_dim); on the card a head_dim beyond the kernel (gemma3-12b's 256)
+    raises rather than run without it; a plain build by request; the
+    families not ported raise."""
+    assert tlm.build(tconfigs.get("gemma2-27b"), device="cpu").attention == \
+        "flash_attention"
+    gemma3 = tconfigs.get("gemma3-12b")
+    assert tlm.build(gemma3, device="cpu").attention == "flash_attention"
+    assert not tlm.kernel_takes(gemma3)
+    with pytest.raises(NotImplementedError, match="head_dim 256.*LM item 5"):
+        tlm._route(gemma3, None, torch.device("cuda"))
+    assert tlm._route(tconfigs.get("gemma2-27b"), None,
+                      torch.device("cuda"))[1] == "flash_attention"
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    plain = tlm.build(tconfigs.get_smoke("gemma2-27b"), device="cpu",
+                      attention=flash_attention_plain)
+    assert plain.attention == "flash_attention_plain"
+    for arch in ("dbrx_132b", "deepseek_moe_16b", "mamba2_780m", "hymba_1_5b",
+                 "paligemma_3b", "whisper_medium"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tlm.build(tconfigs.get_smoke(arch), device="cpu")
+
+
+def test_build_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.build(tconfigs.get_smoke("gemma2_27b"))

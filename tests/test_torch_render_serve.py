@@ -378,28 +378,21 @@ def test_density_refresh_enables_radiance_chaining():
         assert -10 * np.log10(mse + 1e-20) > 30.0, r.rid
 
 
-def test_seeded_probe_matches_reference_with_its_draws(monkeypatch):
-    """A seeded request's probe draws are the port's own generator's; given
-    JAX's own draws (``uniform(PRNGKey(probe_seed + rid))``) the rest of
-    the seeded request matches the reference."""
+def test_seeded_probe_matches_reference_with_its_draws():
+    """A seeded request's probe draws are the reference's own
+    (``uniform(PRNGKey(probe_seed + rid))``, through ``repro_torch.prng``),
+    and the whole seeded request matches the reference."""
     from repro_torch.serve import admission as tadm
     _, acfg = acfgs()
-
-    def jax_draws(rcfg, req, acfg_, device):
-        st = acfg_.probe_stride
-        n = (-(-req.cam.height // st)) * (-(-req.cam.width // st))
-        key = jax.random.PRNGKey(rcfg.probe_seed + req.rid)
-        return torch.from_numpy(np.array(
-            jax.random.uniform(key, (n, acfg_.ns_full)))).to(device)
-
-    own = tadm.probe_jitter_for(tre.RenderServeConfig(probe_seed=5),
-                                requests([(1, "mic", 0.7, 0.5)])[1][0],
+    req = requests([(1, "mic", 0.7, 0.5)])[1][0]
+    own = tadm.probe_jitter_for(tre.RenderServeConfig(probe_seed=5), req,
                                 acfg, "cpu")
     assert own.shape == ((SIZE // 4) ** 2, acfg.ns_full)
-    assert float(own.min()) >= 0.0 and float(own.max()) < 1.0
+    want = jax.random.uniform(jax.random.PRNGKey(5 + req.rid),
+                              (own.shape[0], acfg.ns_full))
+    np.testing.assert_array_equal(own.numpy(), np.asarray(want))
     assert tadm.probe_jitter_for(tre.RenderServeConfig(), None, acfg,
                                  "cpu") is None
-    monkeypatch.setattr(tadm, "probe_jitter_for", jax_draws)
     assert_parity(*run_both(traj(4), reuse=None, slots=2, blocks_per_batch=4,
                             probe_seed=5))
 

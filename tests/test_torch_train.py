@@ -178,11 +178,12 @@ def test_train_ngp_defaults_to_the_gpu():
 
 
 def test_generator_fixes_the_run():
-    """One seed, one run: the batches and jitter come from the generator."""
+    """One seed, one run: the init, batches and jitter come from the
+    config's seed."""
     cfg = ttrain.NGPTrainConfig(steps=2, batch_rays=64, n_samples=8,
-                                n_views=2, view_hw=(8, 8), log_every=1)
-    runs = [ttrain.train_ngp(cfg, device="cpu", verbose=False,
-                             generator=torch.Generator().manual_seed(5))
+                                n_views=2, view_hw=(8, 8), log_every=1,
+                                seed=5)
+    runs = [ttrain.train_ngp(cfg, device="cpu", verbose=False)
             for _ in range(2)]
     assert [h[1] for h in runs[0][3]] == [h[1] for h in runs[1][3]]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][0].buffers(),
