@@ -166,11 +166,39 @@ root of a checkout, on a machine with one NVIDIA H100.
    attention on the longest wave held against ``flash_attention_plain``
    on the q/k/v they had, at ``ATTN_TOL["bf16"]``.
 
+10. ``[moe]``: deepseek-moe-16b (``configs/deepseek_moe_16b.py`` CONFIG,
+   28 layers, d_model 2,048, 16 heads x 128, 64 routed experts top-6 and
+   2 shared of d_ff 1,408, vocab 102,400; 16.88e9 parameters stored in
+   bf16) served the same way (``run_lm``) on ``FAMILY_WAVES``: four
+   512-token prompts (groups of 512, capacity 60) and one of 4,096 (four
+   groups of 1,024, capacity 120; the reference refuses 4,608), 32 new
+   tokens each, ``max_seq`` ``FAMILY_MAX_SEQ``.  Readings as ``[lm]``'s,
+   and the top-6 choices wave B's prefill dropped for capacity over its
+   layers.  Gate (a) at 2 layers also records each routing call's top-k
+   experts in both builds (``RouteLog``): logits and tokens are held on
+   every request whose experts are the same in both, and it fails if more
+   than ``MAX_FLIP_SHARE`` of routed token-layers flipped; its decode
+   check runs at capacity factor 8 with one routing group a sequence,
+   asserted drop-free.  Gate (b): 56 flash launches.
+
+11. ``[ssm]``: mamba2-780m (48 attention-free SSD layers, d_model 1,536,
+   48 heads x 64, state 128) and hymba-1.5b (32 layers of parallel
+   attention, 25 heads over 5 x 64 with a 1,024 window but for layers 0,
+   16 and 31, and SSD heads of state 16), each as ``[moe]`` without the
+   sampled and profiled runs; gate (a) at 2 and 4 layers (hymba's four
+   hold a local layer), where the decode check puts the SSM state's
+   hand-off (``prefill`` -> ``ssm_step``) on the card; gate (b): 0 and 64
+   flash launches, and hymba's wave B decodes its local layers through
+   the ring.  Each new phase prints the memory still allocated at its
+   start.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
 ``[train]``, the two trained frames together; for ``[reuse]``, the
-trajectory; for ``[serve]``, the main run; for ``[lm]``, the main run's
-``generate``, whose flash-attention launches are the JSON row's).
+trajectory; for ``[serve]``, the main run; for ``[lm]``, ``[moe]`` and
+``[ssm]``, the main run's ``generate``, with exactly one flash launch a
+layer with attention a wave; mamba2-780m launches none.  The JSON row's
+launches are ``[lm]``'s).
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
 reference layout: Glorot-uniform MLPs and hash tables
@@ -180,8 +208,8 @@ ladder and most Phase-II blocks saturate before their budget (both
 asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
-``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``
-and ``[lm]``.  Prints one
+``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``,
+``[lm]``, ``[moe]`` and ``[ssm]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -1047,13 +1075,15 @@ def report_device_time(what, fn, dev, top=6, share_of="hash_encode_kernel",
     launched and the device's idle share of the call's wall time ("not
     measured" where the profiler sees no device time); with
     ``overlap_of``, how that kernel's launches overlapped the device work
-    of other streams (``stream_overlap``)."""
+    of other streams (``stream_overlap``).  On the card it traces the
+    device's activity alone: every reading here is of device events, and
+    tracing the host's ops too slows the call and takes minutes to sum
+    over an LM wave's ~200,000 launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
+    acts = [ProfilerActivity.CUDA if dev.type == "cuda"
+            else ProfilerActivity.CPU]
     sync(dev)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1870,11 +1900,35 @@ LM_SLOTS = 4
 LM_MAX_SEQ = 4608 + 32 + 8
 LM_INIT_SEED = 0
 LM_SAMPLE_SEED = 0                 # the temperature-1.0 run of wave A
-# Gate (a): fp32 at full width, depth cut to one local and one global
-# layer, the kernel build against the plain build on the same weights.
+# Gate (a): fp32 at full width, depth cut, the kernel build against the
+# plain build on the same weights (gemma2-27b: one local, one global layer).
 LM_GATE_LAYERS = 2
 LM_GATE_ATOL = 1e-3
 LM_REPS = 3                        # CUDA-event repeats of the attention
+# The [moe] and [ssm] phases: deepseek-moe-16b (28 MoE layers of 64 experts
+# top-6 + 2 shared, d_model 2,048, MHA 16 x 128), then mamba2-780m (48
+# attention-free SSD layers) and hymba-1.5b (32 layers of parallel
+# attention, GQA 25 / 5 x 64, window 1,024 but the first, middle and last
+# layers global, and SSD heads), each at full width and depth in bf16
+# through lm.build -> ServingEngine.generate, the same way as [lm].  Wave
+# B's 4,096 tokens are four MoE groups of 1,024 (the reference asserts
+# that the group size divides the tokens: 4,608 is refused); hymba's
+# passes its 1,024 window, so its local layers decode through the ring.
+FAMILY_WAVES = ((4, 512, 32), (1, 4096, 32))
+FAMILY_MAX_SEQ = 4096 + 32 + 8
+FAMILIES = (("deepseek_moe_16b", "[moe]"), ("mamba2_780m", "[ssm]"),
+            ("hymba_1_5b", "[ssm]"))
+# Gate (a)'s depth: hymba needs 4 layers for a local one (its ends_global
+# pattern makes layers 0, n // 2 and n - 1 global: 3 layers are all global).
+FAMILY_GATE_LAYERS = {"deepseek-moe-16b": 2, "mamba2-780m": 2,
+                      "hymba-1.5b": 4}
+# Gate (a)'s decode-against-forward check on a MoE runs without drops, as
+# the reference's own (tests/test_models.py:50-76): capacity factor 8, and
+# one routing group a sequence (the forward over 4,096 + s tokens is no
+# multiple of 1,024; without drops the output does not depend on the
+# grouping, which the check asserts by counting drops).
+GATE_CAPACITY = 8.0
+MAX_FLIP_SHARE = 1e-3              # routed token-layers whose experts differ
 
 
 def lm_requests(cfg, waves, seed=SEED):
@@ -1889,6 +1943,16 @@ def lm_requests(cfg, waves, seed=SEED):
             reqs.append(Request(rid=len(reqs), max_new=new, prompt=rng.integers(
                 0, cfg.vocab, size=plen).astype(np.int32)))
     return reqs
+
+
+def engine_waves(reqs):
+    """The requests as the engine groups them: by prompt length, in slots
+    of LM_SLOTS."""
+    by_len = {}
+    for r in reqs:
+        by_len.setdefault(len(r.prompt), []).append(r)
+    return [rs[s:s + LM_SLOTS] for _, rs in sorted(by_len.items())
+            for s in range(0, len(rs), LM_SLOTS)]
 
 
 def fresh(reqs):
@@ -1924,7 +1988,7 @@ def instrumented(api, dev, log):
             log.append((kind, 1e3 * (time.perf_counter() - t0),
                         logits.shape[0], logits.shape[1]))
             if not bool(torch.isfinite(logits).all()):
-                raise AssertionError(f"[lm] non-finite logits in {kind}")
+                raise AssertionError(f"non-finite logits in {kind}")
             return logits, caches
         return call
 
@@ -1932,21 +1996,150 @@ def instrumented(api, dev, log):
                                decode_fn=wrap(api.decode_fn, "decode"))
 
 
-def lm_gate_a(cfg, waves, max_seq, dev):
-    """Gate (a): fp32, ``LM_GATE_LAYERS`` layers at full width; the kernel
-    build against the plain build on the same weights: every prefill's
-    logits within LM_GATE_ATOL, every greedy token equal, and each decode
-    step of the longest wave's first request within LM_GATE_ATOL of a full
-    forward over its prompt and the tokens so far (its local layer decodes
-    through the ring)."""
+def attention_layers(cfg) -> int:
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+class RouteLog:
+    """While open, ``ffn.moe_apply`` and ``ffn._route`` are wrapped: each
+    routing call appends (B, S, its sorted top-k expert indices (B, S, k)
+    on the host, the top-k choices dropped for capacity) to ``calls``.
+    What the model computes does not change."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import ffn
+
+        self._orig = moe_apply, route = ffn.moe_apply, ffn._route
+        shapes = []
+
+        def recording_apply(p, x, cfg, act="silu"):
+            shapes.append(tuple(x.shape[:2]))
+            try:
+                return moe_apply(p, x, cfg, act)
+            finally:
+                shapes.pop()
+
+        def recording_route(logits, k, capacity):
+            dispatch, combine = route(logits, k, capacity)
+            B, S = shapes[-1]
+            _, idx = ffn.top_k(ffn.softmax_f32(logits), k)
+            idx = torch.sort(idx, dim=-1).values.reshape(B, S, k).cpu()
+            kept = float(dispatch.sum())
+            self.calls.append((B, S, idx, k * B * S - round(kept)))
+            return dispatch, combine
+
+        ffn.moe_apply, ffn._route = recording_apply, recording_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ffn
+        ffn.moe_apply, ffn._route = self._orig
+
+    def drops(self) -> int:
+        return sum(c[3] for c in self.calls)
+
+
+def compare_routes(calls_a, calls_b, rows: int):
+    """Two builds' routing calls, in order, on the same ``rows`` requests:
+    (bool list, a row whose expert set differed at some token; flipped
+    token-layers; routed token-layers).  A row counts its flips up to its
+    first flipping call: later calls see other inputs."""
+    import numpy as np
+    assert len(calls_a) == len(calls_b)
+    flipped = np.zeros(rows, bool)
+    n_flip = n_routed = 0
+    for (B, S, ia, _), (_, _, ib, _) in zip(calls_a, calls_b):
+        diff = (ia != ib).any(-1).numpy()                 # (B, S)
+        live = ~flipped[:B]
+        n_flip += int(diff[live].sum())
+        n_routed += int(live.sum()) * S
+        flipped[:B] |= diff.any(-1)
+    return list(flipped), n_flip, n_routed
+
+
+def lm_gate_a(cfg, waves, max_seq, dev, layers, tag):
+    """Gate (a): fp32, ``layers`` layers at full width; the kernel build
+    against the plain build on the same weights, wave by wave: prefill
+    logits within LM_GATE_ATOL and greedy tokens equal on every request
+    whose routing (a MoE's top-k experts at every token and layer, held by
+    ``RouteLog``) is the same in both builds; at most MAX_FLIP_SHARE of
+    routed token-layers flipped; then ``decode_against_forward``."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch import prng
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.serve.engine import ServingEngine
-    from repro_torch.models import lm, transformer
+    from repro_torch.models import lm
 
+    gcfg = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+    kern = lm.build(gcfg, device=dev)
+    plain = lm.build(gcfg, device=dev, attention=FA.flash_attention_plain)
+    values = kern.init(prng.PRNGKey(LM_INIT_SEED))
+    reqs = lm_requests(gcfg, waves)
+    worst, same, flips, routed, held = 0.0, True, 0, 0, 0
+    for wave in engine_waves(reqs):
+        toks = {"tokens": torch.from_numpy(np.stack([r.prompt
+                                                     for r in wave]))}
+        with RouteLog() as rk:
+            lk, _ = kern.prefill_fn(values, toks, max_seq=max_seq)
+        with RouteLog() as rp:
+            lp, _ = plain.prefill_fn(values, toks, max_seq=max_seq)
+        keep = [not f for f in compare_routes(rk.calls, rp.calls,
+                                              len(wave))[0]]
+        err = float((lk[keep] - lp[keep]).abs().max()) if any(keep) else 0.0
+        worst = max(worst, err)
+        print(f"{tag} gate (a): prefill of {tuple(toks['tokens'].shape)} "
+              f"tokens, fp32, {layers} layers: kernel vs plain build "
+              f"max_abs_err={err:.3e} on {sum(keep)} of {len(wave)} "
+              f"requests{'' if all(keep) else ' (the others routed apart)'}",
+              flush=True)
+        del lk, lp
+        with RouteLog() as rk:
+            got = lm_tokens(lm_engine(kern, values, dev, max_seq).generate(
+                fresh(wave)))
+        with RouteLog() as rp:
+            want = lm_tokens(lm_engine(plain, values, dev, max_seq).generate(
+                fresh(wave)))
+        flipped, n_f, n_r = compare_routes(rk.calls, rp.calls, len(wave))
+        flips, routed = flips + n_f, routed + n_r
+        for r, f in zip(wave, flipped):
+            if not f:
+                held += 1
+                same = same and bool((got[r.rid] == want[r.rid]).all())
+    share = flips / routed if routed else 0.0
+    print(f"{tag} gate (a): greedy tokens, kernel vs plain build: "
+          f"{'all equal' if same else 'DIFFER'} over {held} of {len(reqs)} "
+          f"requests; routing flips in the engine runs: {flips} of {routed} "
+          f"routed token-layers ({share:.2e}, limit {MAX_FLIP_SHARE})",
+          flush=True)
+    dec = decode_against_forward(gcfg, values, reqs, max_seq, dev, tag)
+    if (worst > LM_GATE_ATOL or dec > LM_GATE_ATOL or not same
+            or share > MAX_FLIP_SHARE):
+        raise AssertionError(f"{tag} gate (a) failed")
+    return worst, dec
+
+
+def decode_against_forward(gcfg, values, reqs, max_seq, dev, tag):
+    """Each decode step of the longest wave's first request (ring caches
+    on local layers, the SSM state handed over by prefill) against a full
+    forward over its prompt and the tokens so far, on the kernel route;
+    a MoE without drops (GATE_CAPACITY, one routing group a sequence,
+    asserted drop-free) and a step skipped where the step's experts differ
+    from the forward's last token's.  Returns the max abs error."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm, transformer
+    from repro_torch.serve.engine import ServingEngine
+
+    moe = gcfg.family == "moe"
+    ccfg = dataclasses.replace(gcfg, capacity_factor=GATE_CAPACITY,
+                               moe_group_size=1 << 30) if moe else gcfg
+    api = lm.build(ccfg, device=dev)
+    attend = lm._route(ccfg, None, api.device)[0]
     seen = []
 
     class Recording(ServingEngine):
@@ -1956,61 +2149,45 @@ def lm_gate_a(cfg, waves, max_seq, dev):
             seen.append(logits.detach().clone())
             return super()._sample(logits, key)
 
-    gcfg = dataclasses.replace(cfg, n_layers=LM_GATE_LAYERS, dtype="float32")
-    kern = lm.build(gcfg, device=dev)
-    kern_attend = lm._route(gcfg, None, kern.device)[0]
-    plain = lm.build(gcfg, device=dev, attention=FA.flash_attention_plain)
-    values = kern.init(prng.PRNGKey(LM_INIT_SEED))
-    reqs = lm_requests(gcfg, waves)
-    worst = 0.0
-    for plen in sorted({len(r.prompt) for r in reqs}):
-        toks = {"tokens": torch.from_numpy(np.stack(
-            [r.prompt for r in reqs if len(r.prompt) == plen][:LM_SLOTS]))}
-        lk, _ = kern.prefill_fn(values, toks, max_seq=max_seq)
-        lp, _ = plain.prefill_fn(values, toks, max_seq=max_seq)
-        err = float((lk - lp).abs().max())
-        worst = max(worst, err)
-        print(f"[lm] gate (a): prefill of {tuple(toks['tokens'].shape)} "
-              f"tokens, fp32, {LM_GATE_LAYERS} layers: kernel vs plain build "
-              f"max_abs_err={err:.3e}", flush=True)
-        del lk, lp
-    got = lm_tokens(lm_engine(kern, values, dev, max_seq,
-                              engine_cls=Recording).generate(fresh(reqs)))
-    want = lm_tokens(lm_engine(plain, values, dev, max_seq).generate(
-        fresh(reqs)))
-    same = all((got[i] == want[i]).all() for i in want)
-    print(f"[lm] gate (a): greedy tokens, kernel vs plain build: "
-          f"{'all equal' if same else 'DIFFER'} over {len(want)} requests",
-          flush=True)
-    # the last wave is the longest prompts' (one wave of them): its first
-    # request's logits are row 0 of the last max_new the engine drew from
     plen = max(len(r.prompt) for r in reqs)
-    longest = [r for r in reqs if len(r.prompt) == plen]
-    assert len(longest) <= LM_SLOTS and len({r.max_new for r in longest}) == 1
-    long_req = longest[0]
-    steps = seen[-long_req.max_new:]
-    seq = list(long_req.prompt) + list(got[long_req.rid])
-    dec = 0.0
-    for s in range(1, long_req.max_new):
-        full, _ = transformer.forward(values, gcfg, torch.tensor(
-            [seq[:plen + s]], device=dev), kern_attend)
-        dec = max(dec, float((steps[s][0] - full[0, -1]).abs().max()))
+    req = [r for r in reqs if len(r.prompt) == plen][0]
+    with RouteLog() as rd:
+        out = lm_engine(api, values, dev, max_seq, engine_cls=Recording
+                        ).generate(fresh([req]))[0].out
+    seq = list(req.prompt) + list(out)
+    L = ccfg.n_layers if moe else 0
+    dec, skipped, drops = 0.0, 0, rd.drops()
+    for s in range(1, req.max_new):
+        with RouteLog() as rf:
+            full, _ = transformer.forward(values, ccfg, torch.tensor(
+                [seq[:plen + s]], device=dev), attend)
+        drops += rf.drops()
+        step = rd.calls[L * s:L * (s + 1)]
+        if any(not torch.equal(a[2][0, 0], b[2][0, -1])
+               for a, b in zip(step, rf.calls)):
+            skipped += 1
+            continue
+        dec = max(dec, float((seen[s][0] - full[0, -1]).abs().max()))
         del full
-    print(f"[lm] gate (a): {long_req.max_new - 1} decode steps of the "
-          f"{len(long_req.prompt)}-token prompt (ring on the local layer) "
-          f"against a full forward: max_abs_err={dec:.3e} (limit "
-          f"{LM_GATE_ATOL})", flush=True)
-    if worst > LM_GATE_ATOL or dec > LM_GATE_ATOL or not same:
-        raise AssertionError("[lm] gate (a) failed")
-    return worst, dec
+    print(f"{tag} gate (a): {req.max_new - 1 - skipped} of {req.max_new - 1} "
+          f"decode steps of the {plen}-token prompt against a full forward "
+          f"(skipped where the step's experts differ from the forward's: "
+          f"{skipped}{f'; capacity factor {GATE_CAPACITY}, one group a sequence, {drops} drops' if moe else ''}): "
+          f"max_abs_err={dec:.3e} (limit {LM_GATE_ATOL})", flush=True)
+    if drops or skipped > (req.max_new - 1) // 2:
+        raise AssertionError(f"{tag} gate (a): decode against forward "
+                             f"({drops} drops, {skipped} steps skipped)")
+    return dec
 
 
-def lm_attention_readings(cfg, waves, dev, reps=LM_REPS):
+def lm_attention_readings(cfg, waves, dev, reps=LM_REPS, tag="[lm]",
+                          json_row=True):
     """Flash attention at the waves' prefill shapes (bf16, B x S x H over
-    KV x Dh), local and global, each beside its bound and the plain
-    version; SDPA on the same shapes without the softcap (SDPA has no tanh
-    softcap; the local shapes take a sliding-window mask).  Returns the
-    JSON row of the longest wave's global layer."""
+    KV x Dh), local (where the config has a window) and global, each beside
+    its bound and the plain version; SDPA on the same shapes without the
+    softcap (SDPA has no tanh softcap; the local shapes take a
+    sliding-window mask).  Returns the JSON row of the longest wave's
+    global layer where ``json_row``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2019,12 +2196,13 @@ def lm_attention_readings(cfg, waves, dev, reps=LM_REPS):
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     rng = np.random.default_rng(SEED)
     row = None
+    settings = ([("local", cfg.window)] if cfg.window else []) + [("global", 0)]
     for n, S, _ in waves:
         B = min(n, LM_SLOTS)
         x = [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(
             dev, torch.bfloat16) for sh in ((B, S, H, Dh), (B, S, KV, Dh),
                                             (B, S, KV, Dh))]
-        for tag, w in (("local", cfg.window), ("global", 0)):
+        for kind, w in settings:
             c = cfg.attn_softcap
             out, ms = timed(lambda: FA.flash_attention(*x, window=w,
                                                        softcap=c), dev, reps)
@@ -2042,18 +2220,19 @@ def lm_attention_readings(cfg, waves, dev, reps=LM_REPS):
             flop = 4 * Dh * pairs
             nbytes = 2 * 2 * (x[0].numel() + x[1].numel())
             rtol, atol, rel = ATTN_TOL["bf16"]
-            name = f"flash_attention [lm] B {B} S {S} {tag}"
+            name = f"flash_attention {tag} B {B} S {S} {kind}"
             args = (out, want, ms, plain_ms, flop, nbytes)
             kw = dict(library_ms=lib_ms, rtol=rtol, atol=atol,
                       peak=PEAK_BF16_TC, rel=rel)
-            if tag == "global" and S == max(s for _, s, _ in waves):
+            if (json_row and kind == "global"
+                    and S == max(s for _, s, _ in waves)):
                 res = row = kernel_row(
                     "flash_attention", "flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:86", *args, **kw)
             else:
                 res = check(name, *args, **kw)
-            print(f"[lm] {name} (window {w}, softcap {c}, bf16): {ms:.3f} ms, "
-                  f"bound {res['bound_ms']:.3f} ms ({res['bound_by']}"
+            print(f"{tag} {name} (window {w}, softcap {c}, bf16): {ms:.3f} "
+                  f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}"
                   f"{attention_bounds(torch.bfloat16, flop, pairs, c)}); "
                   f"SDPA without the softcap (it has none"
                   f"{', a window mask' if mask is not None else ', causal'}) "
@@ -2062,11 +2241,12 @@ def lm_attention_readings(cfg, waves, dev, reps=LM_REPS):
     return row
 
 
-def lm_layer_attention(cfg, values, reqs, max_seq, dev):
+def lm_layer_attention(cfg, values, reqs, max_seq, dev, tag="[lm]"):
     """Gate (b)'s attention check: the longest wave's prefill once more
-    with the kernel route recording layer 0's and layer 1's q, k, v; each
+    with the kernel route recording layers 0's and 1's q, k, v; each
     layer's kernel output held against ``flash_attention_plain`` on them at
-    ATTN_TOL["bf16"]."""
+    ATTN_TOL["bf16"].  Returns the top-k choices that prefill dropped for
+    capacity, over its layers (0 without MoE)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
@@ -2084,8 +2264,9 @@ def lm_layer_attention(cfg, values, reqs, max_seq, dev):
     api = lm.build(cfg, device=dev, attention=recording)
     plen = max(len(r.prompt) for r in reqs)
     toks = np.stack([r.prompt for r in reqs if len(r.prompt) == plen])
-    logits, caches = api.prefill_fn(values, {"tokens": torch.from_numpy(
-        toks[:LM_SLOTS])}, max_seq=max_seq)
+    with RouteLog() as routes:
+        logits, caches = api.prefill_fn(values, {"tokens": torch.from_numpy(
+            toks[:LM_SLOTS])}, max_seq=max_seq)
     del logits, caches
     rtol, atol, rel = ATTN_TOL["bf16"]
     ok = True
@@ -2094,107 +2275,169 @@ def lm_layer_attention(cfg, values, reqs, max_seq, dev):
         err, close = max_err(out, want, rtol, atol)
         r = rel_norm_err(out, want)
         ok = ok and close and r <= rel
-        print(f"[lm] gate (b): layer {l} (window {w}) prefill attention on its "
-              f"own q/k/v {tuple(q.shape)}, kernel vs plain: "
+        print(f"{tag} gate (b): layer {l} (window {w}) prefill attention on "
+              f"its own q/k/v {tuple(q.shape)}, kernel vs plain: "
               f"max_abs_err={err:.3e} rel_norm_err={r:.3e} (rtol {rtol}, "
               f"atol {atol}, norm {rel})", flush=True)
-    if len(seen) < 2 or not ok:
-        raise AssertionError("[lm] gate (b): a layer's prefill attention "
-                             "disagrees with the plain version")
+    if len(seen) < min(2, attention_layers(cfg)) or not ok:
+        raise AssertionError(f"{tag} gate (b): a layer's prefill attention "
+                             f"disagrees with the plain version")
+    return routes.drops()
 
 
-def run_lm(cfg, dev, waves=LM_WAVES, max_seq=LM_MAX_SEQ, reps=LM_REPS):
-    """The [lm] phase at ``cfg``: gate (a), the bf16 main run through
+def free_card(dev, tag):
+    """Collect garbage and empty the allocator's cache; print what stays
+    allocated (a new phase's start)."""
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        print(f"{tag} allocated at the phase's start: "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+
+
+def run_lm(cfg, dev, waves=LM_WAVES, max_seq=LM_MAX_SEQ, reps=LM_REPS,
+           tag="[lm]", gate_layers=LM_GATE_LAYERS, json_row=True,
+           extras=True):
+    """An LM phase at ``cfg``: gate (a), the bf16 main run through
     ``lm.build`` -> ``ServingEngine.generate`` (its readings and gate (b)),
-    the sampled run, the plain build's tokens, the profiler's view of the
-    longest wave and the attention readings.  Returns the flash-attention
-    JSON row and its launches in the main run."""
+    and, with ``extras``, the sampled run of wave A and the profiler's view
+    of the longest wave; the plain build's tokens and the attention
+    readings where the config has attention.  Returns the flash-attention
+    JSON row (``json_row``) and its launches in the main run."""
     import numpy as np
     import torch
     from repro_torch import prng
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
     from repro_torch.models import lm, transformer
     from repro_torch.models.params import tree_leaves
 
     t_phase = time.perf_counter()
-    lm_gate_a(cfg, waves, max_seq, dev)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
+
+    def stamp(what):
+        print(f"{tag} {cfg.name}: {what} at {time.perf_counter() - t_phase:.1f}"
+              f" s into the phase", flush=True)
+
+    free_card(dev, tag)
+    lm_gate_a(cfg, waves, max_seq, dev, gate_layers, tag)
+    stamp("gate (a) done")
+    free_card(dev, tag)
     api = lm.build(cfg, device=dev)
     dtype = transformer.compute_dtype(cfg)
     values, init_ms = host_ms(lambda: api.init(prng.PRNGKey(LM_INIT_SEED),
                                                dtype=dtype), dev)
     n_par = sum(v.numel() for v in tree_leaves(values))
-    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV x {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_par} parameters "
+    width = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV x "
+             f"{cfg.resolved_head_dim}" if attention_layers(cfg) else
+             "no attention")
+    if cfg.family == "moe":
+        width += (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+                  f"{cfg.n_shared_experts} shared of d_ff {cfg.moe_d_ff}")
+    elif cfg.family in ("ssm", "hybrid"):
+        width += (f", SSD {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+                  f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{width}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_par} parameters "
           f"(param_count {cfg.param_count()}) in {cfg.dtype}; init "
           f"{init_ms / 1e3:.1f} s (prng.normal in fp32 on the device, cast "
           f"once); attention route {api.attention}", flush=True)
     reqs = lm_requests(cfg, waves)
     log = []
     eng = lm_engine(instrumented(api, dev, log), values, dev, max_seq)
+    attends = attention_layers(cfg) > 0
     sync(dev)
     t0 = time.perf_counter()
-    done, launches = path_launches(("flash_attention",),
-                                   lambda: eng.generate(fresh(reqs)))
+    done, _ = path_launches(("flash_attention",) if attends else (),
+                            lambda: eng.generate(fresh(reqs)))
+    n_launch = ops.launch_counts()["flash_attention"]
     sync(dev)
     wall = time.perf_counter() - t0
-    n_launch = launches["flash_attention"]
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
             else float("nan"))
     tokens = sum(len(r.out) for r in done)
-    pre = [e for e in log if e[0] == "prefill"]
+    for kind, ms, b, s in (e for e in log if e[0] == "prefill"):
+        print(f"{tag} prefill of {b} x {s} tokens: {ms:.1f} ms", flush=True)
     dec = [e for e in log if e[0] == "decode"]
-    for kind, ms, b, s in pre:
-        print(f"[lm] prefill of {b} x {s} tokens: {ms:.1f} ms", flush=True)
     for b in sorted({e[2] for e in dec}):
         d = [e[1] for e in dec if e[2] == b]
-        print(f"[lm] decode, batch {b}: {len(d)} steps, median "
+        print(f"{tag} decode, batch {b}: {len(d)} steps, median "
               f"{float(np.median(d)):.2f} ms a step (min {min(d):.2f}, max "
               f"{max(d):.2f})", flush=True)
-    print(f"[lm] main run: {len(done)} requests, {tokens} tokens in "
+    print(f"{tag} main run: {len(done)} requests, {tokens} tokens in "
           f"{wall:.2f} s ({tokens / wall:.1f} tokens/s); peak memory "
           f"{peak:.2f} GB; flash_attention launched {n_launch} times",
           flush=True)
-    want_launch = cfg.n_layers * len({(len(r.prompt), i // LM_SLOTS)
-                                      for i, r in enumerate(reqs)})
+    want_launch = attention_layers(cfg) * len(engine_waves(reqs))
     in_range = all(((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done)
-    print(f"[lm] gate (b): {n_launch} flash launches (want {want_launch}), "
+    print(f"{tag} gate (b): {n_launch} flash launches (want {want_launch}), "
           f"tokens in [0, vocab) {in_range}, every logit finite", flush=True)
     if n_launch != want_launch or not in_range:
-        raise AssertionError("[lm] gate (b) failed")
-    lm_layer_attention(cfg, values, reqs, max_seq, dev)
-
-    wave_a = [r for r in reqs if len(r.prompt) == waves[0][1]]
-    sampled = lm_engine(api, values, dev, max_seq, temperature=1.0,
-                        seed=LM_SAMPLE_SEED).generate(fresh(wave_a))
+        raise AssertionError(f"{tag} gate (b) failed")
+    stamp("main run done")
+    drops = lm_layer_attention(cfg, values, reqs, max_seq, dev, tag)
+    if cfg.family == "moe":
+        plen = max(len(r.prompt) for r in reqs)
+        print(f"{tag} the longest wave's prefill ({plen} tokens, groups of "
+              f"{min(cfg.moe_group_size, plen)}): {drops} of "
+              f"{cfg.top_k * plen * cfg.n_layers} top-{cfg.top_k} choices "
+              f"dropped for capacity over its {cfg.n_layers} layers",
+              flush=True)
     greedy = lm_tokens(done)
-    print(f"[lm] wave A sampled at temperature 1.0, seed {LM_SAMPLE_SEED}: "
-          f"first tokens {[int(r.out[0]) for r in sampled]}, share equal to "
-          f"greedy {np.mean([(r.out == greedy[r.rid]).mean() for r in sampled]):.3f}",
-          flush=True)
-    if not all(((r.out >= 0) & (r.out < cfg.vocab)).all() for r in sampled):
-        raise AssertionError("[lm] a sampled token is out of range")
-    plain = lm.build(cfg, device=dev, attention=FA.flash_attention_plain)
-    got_p = lm_tokens(lm_engine(plain, values, dev, max_seq).generate(
-        fresh(reqs)))
-    share = np.mean([(greedy[i] == got_p[i]).mean() for i in greedy])
-    print(f"[lm] bf16 greedy tokens, kernel build vs plain build: share equal "
-          f"{share:.3f} (not gated: the builds round P alike but sum in "
-          f"other orders, and a near tie flips a token)", flush=True)
     long_req = [r for r in reqs if len(r.prompt) == max(w[1] for w in waves)]
-    report_device_time("[lm] the longest wave (prefill + decode)",
-                       lambda: lm_engine(api, values, dev, max_seq).generate(
-                           fresh(long_req[:LM_SLOTS])),
-                       dev, top=8, share_of="flash_attention")
-    del values, plain, eng
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    row = lm_attention_readings(cfg, waves, dev, reps)
-    print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if extras:
+        wave_a = [r for r in reqs if len(r.prompt) == waves[0][1]]
+        sampled = lm_engine(api, values, dev, max_seq, temperature=1.0,
+                            seed=LM_SAMPLE_SEED).generate(fresh(wave_a))
+        print(f"{tag} wave A sampled at temperature 1.0, seed "
+              f"{LM_SAMPLE_SEED}: first tokens "
+              f"{[int(r.out[0]) for r in sampled]}, share equal to greedy "
+              f"{np.mean([(r.out == greedy[r.rid]).mean() for r in sampled]):.3f}",
+              flush=True)
+        if not all(((r.out >= 0) & (r.out < cfg.vocab)).all()
+                   for r in sampled):
+            raise AssertionError(f"{tag} a sampled token is out of range")
+        stamp("sampled run done")
+        report_device_time(f"{tag} the longest wave (prefill + decode)",
+                           lambda: lm_engine(api, values, dev, max_seq)
+                           .generate(fresh(long_req[:LM_SLOTS])),
+                           dev, top=8, share_of="flash_attention")
+        stamp("profiled run done")
+    if attends:
+        plain = lm.build(cfg, device=dev, attention=FA.flash_attention_plain)
+        got_p = lm_tokens(lm_engine(plain, values, dev, max_seq).generate(
+            fresh(reqs)))
+        share = np.mean([(greedy[i] == got_p[i]).mean() for i in greedy])
+        print(f"{tag} bf16 greedy tokens, kernel build vs plain build: share "
+              f"equal {share:.3f} (not gated: the builds round P alike but "
+              f"sum in other orders, and a near tie flips a token)",
+              flush=True)
+    del values, eng
+    stamp("plain build's run done")
+    free_card(dev, tag)
+    row = (lm_attention_readings(cfg, waves, dev, reps, tag, json_row)
+           if attends else None)
+    print(f"{tag} phase {cfg.name} {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return row, n_launch
+
+
+def run_families(dev, families=FAMILIES, waves=FAMILY_WAVES,
+                 max_seq=FAMILY_MAX_SEQ, reps=LM_REPS, smoke=False):
+    """The [moe] and [ssm] phases: each family config through ``run_lm``
+    (``smoke``: the configs' SMOKE, for a CPU rehearsal).  Returns each
+    main run's flash launches by config name."""
+    import repro_torch.configs as configs
+    launches = {}
+    for arch, tag in families:
+        cfg = (configs.get_smoke if smoke else configs.get)(arch)
+        layers = FAMILY_GATE_LAYERS.get(cfg.name, min(4, cfg.n_layers))
+        _, launches[cfg.name] = run_lm(
+            cfg, dev, waves, max_seq, reps, tag=tag, gate_layers=layers,
+            json_row=False, extras=cfg.family == "moe")
+    return launches
 
 
 def attention_bounds(dtype, flop, pairs, softcap):
@@ -2328,10 +2571,11 @@ def check_attention_ragged(dev):
 
 
 def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN, lm_waves=LM_WAVES,
-        lm_max_seq=LM_MAX_SEQ):
-    """Phases 2-9 on ``dev`` at ``bundle``, image size ``hw``, the LM config
+        lm_max_seq=LM_MAX_SEQ, family_kw=None):
+    """Phases 2-11 on ``dev`` at ``bundle``, image size ``hw``, the LM config
     ``attn`` (its attention widths for phase 5, ``seq`` tokens; the whole
-    model for ``[lm]``, on ``lm_waves``), training ``train_kw``; returns
+    model for ``[lm]``, on ``lm_waves``), training ``train_kw``, then the
+    ``[moe]`` and ``[ssm]`` phases (``run_families(**family_kw)``); returns
     the kernel rows of the JSON line."""
     from repro_torch import params
     from repro_torch.core import scene
@@ -2349,6 +2593,7 @@ def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN, lm_waves=LM_WAVES,
     run_serve(field_t, scene_t, field, bundle, dev, hw)
     del field, field_t, scene_t
     fa_row, fa_launches = run_lm(attn, dev, lm_waves, lm_max_seq, reps)
+    run_families(dev, reps=reps, **(family_kw or {}))
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches,
                     flash_attention=fa_launches)

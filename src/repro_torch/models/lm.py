@@ -1,5 +1,5 @@
 """Model-zoo dispatch (``repro.models.lm``): one interface over the
-decoder families the port has (the dense family).
+decoder families the port has: dense, MoE, SSM (Mamba-2) and hybrid.
 
 ``build(cfg)`` returns a ``ModelAPI`` with
   init(key, dtype=float32) -> values     (concrete params on the device)
@@ -18,13 +18,14 @@ runs ``flash_attention_plain``.  A plain build passes
 The kernel takes a head_dim that is a multiple of 16 up to 128; on the
 card, ``build`` raises ``NotImplementedError`` for a config beyond that
 (gemma3-12b's 256, ROADMAP.md §1, LM item 5) unless the caller passes an
-attention function.  ``api.attention`` names the route.
+attention function.  ``api.attention`` names the route; the SSM family
+(mamba2-780m) has no attention layer, so its route is named but never
+called, and its head_dim (d_model / n_heads) is not checked.
 Decode attends over the caches with ``attention.decode_attend``, as the
 reference does.
 
 Batch layout: {"tokens": (B, S)}.  The encoder-decoder (``_build_encdec``)
-and the MoE, SSM, hybrid and VLM families are not ported yet
-(``transformer.require_dense``).
+and the VLM family are not ported yet (``transformer.refuse_unported``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..kernels import flash_attention as FA
 from ..kernels import ops
 from ..sharding.rules import Axes
 from . import attention as attn_lib
+from . import ssm as ssm_lib
 from . import transformer as tfm
 from .config import ModelConfig, ShapeCell
 
@@ -71,6 +73,8 @@ class ModelAPI:
 
 
 KV_AXES = Axes(("batch", "kv_seq", "heads_act"))
+SSM_H_AXES = Axes(("batch", "heads_act", None))
+SSM_CONV_AXES = Axes(("batch", None, "d_ff_act"))
 
 
 def kernel_takes(cfg: ModelConfig) -> bool:
@@ -82,7 +86,7 @@ def kernel_takes(cfg: ModelConfig) -> bool:
 def _route(cfg: ModelConfig, attention: Optional[Callable],
            dev: torch.device) -> tuple:
     if attention is None:
-        if dev.type == "cuda" and not kernel_takes(cfg):
+        if dev.type == "cuda" and cfg.family != "ssm" and not kernel_takes(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: head_dim {cfg.resolved_head_dim} is beyond "
                 f"csrc/flash_attention.cu (a multiple of 16 up to "
@@ -102,7 +106,7 @@ def build(cfg: ModelConfig, remat_policy: Optional[str] = "full",
     """The model's API on ``device`` (the GPU unless ``device="cpu"``)
     with prefill attention ``attention(q, k, v, window, softcap)`` (default
     the flash kernel, see the module docstring)."""
-    tfm.require_dense(cfg)
+    tfm.refuse_unported(cfg)
     dev = resolve_device(device)
     attend, route = _route(cfg, attention, dev)
 
@@ -136,8 +140,10 @@ def build(cfg: ModelConfig, remat_policy: Optional[str] = "full",
         return tfm.init_layer_caches(cfg, batch, seq, dtype, device="meta")
 
     def decode_cache_axes(batch: int, seq: int):
-        return [tfm.LayerCache(kv=attn_lib.KVCache(KV_AXES, KV_AXES), ssm=None)
-                for _ in cfg.layer_kinds()]
+        kv = None if cfg.family == "ssm" else attn_lib.KVCache(KV_AXES, KV_AXES)
+        ssm = (ssm_lib.SSMState(SSM_H_AXES, SSM_CONV_AXES)
+               if cfg.family in ("ssm", "hybrid") else None)
+        return [tfm.LayerCache(kv=kv, ssm=ssm) for _ in cfg.layer_kinds()]
 
     def input_specs(shape: ShapeCell):
         return {"tokens": torch.empty((shape.global_batch, shape.seq_len),

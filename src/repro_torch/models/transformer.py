@@ -1,4 +1,5 @@
-"""The decoder-only transformer (``repro.models.transformer``), dense family.
+"""The decoder-only transformer (``repro.models.transformer``): the dense,
+MoE, SSM (Mamba-2) and hybrid (parallel attention + SSM) families.
 
 One layer body, eager: layers run in a Python loop (the reference scans
 them), each with its own window from ``cfg.layer_kinds()``, so gemma2's
@@ -12,9 +13,12 @@ kernel by default, its plain version by request.
 Decode attends over the caches with ``attention.decode_attend``, as the
 reference does.
 
-Only the dense family is ported.  The SSM and hybrid branches (Mamba-2
-SSD), the MoE FFN and the VLM image prefix raise ``NotImplementedError``
-naming their ROADMAP.md item; they never compute something else.
+The SSM family has no attention: each layer's SSD block hands its state
+(final h, conv tail) to decode.  The hybrid family runs attention and SSD
+in parallel on the same normed input and averages their normed outputs.
+The MoE family's FFN is ``ffn.moe_apply``.  The VLM image prefix and the
+encoder-decoder raise ``NotImplementedError`` naming their ROADMAP.md
+item (``refuse_unported``); they never compute something else.
 """
 from __future__ import annotations
 
@@ -28,20 +32,20 @@ from ..sharding.activation import constrain
 from . import attention as attn
 from . import ffn as ffn_lib
 from . import params as pp
+from . import ssm as ssm_lib
 from .config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
-_WAITS = {"moe": "the MoE FFN (ROADMAP.md §1, LM item 1)",
-          "ssm": "the Mamba-2 SSD layer (ROADMAP.md §1, LM item 2)",
-          "hybrid": "the Mamba-2 SSD layer (ROADMAP.md §1, LM item 2)",
-          "vlm": "the VLM image prefix (ROADMAP.md §1, LM item 3)",
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_WAITS = {"vlm": "the VLM image prefix (ROADMAP.md §1, LM item 3)",
           "encdec": "the encoder-decoder (ROADMAP.md §1, LM item 4)"}
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for a family whose branches are not ported yet."""
-    if cfg.family != "dense" or cfg.prefix_tokens or cfg.parallel_ssm:
+def refuse_unported(cfg: ModelConfig) -> None:
+    """Raise for what still waits: the VLM image prefix and the
+    encoder-decoder (any family but the four ported)."""
+    if cfg.family not in FAMILIES or cfg.prefix_tokens:
         what = _WAITS.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
 
@@ -72,26 +76,31 @@ def _attn_init(key, cfg: ModelConfig, dtype, device):
 def layer_init(key, cfg: ModelConfig, moe: bool, dtype=torch.float32,
                device=None):
     """One layer's P tree: its matrices drawn in float32 and stored in
-    ``dtype``, its norms' scales in float32 (the reference reads them in
-    float32)."""
-    require_dense(cfg)
-    if moe:
-        raise NotImplementedError(f"{cfg.name}: {_WAITS['moe']} is not "
-                                  f"ported yet")
+    ``dtype``, its norms' scales and the SSM's 1-D leaves in float32 (the
+    reference keeps float32 masters and casts at use)."""
+    refuse_unported(cfg)
     d = cfg.d_model
     ks = prng.split(key, 4)
-    p: Dict[str, Any] = {"pre_attn_norm": pp.zeros_init((d,), ("d_model",),
-                                                        device=device)}
-    p["attn"] = _attn_init(ks[0], cfg, dtype, device)
+    norm = lambda: pp.zeros_init((d,), ("d_model",), device=device)  # noqa: E731
+    p: Dict[str, Any] = {"pre_attn_norm": norm()}
+    if cfg.family != "ssm":
+        p["attn"] = _attn_init(ks[0], cfg, dtype, device)
+    if cfg.family in ("ssm", "hybrid"):
+        p["ssm"] = ssm_lib.ssm_init(ks[1], cfg, dtype, device)
+        if cfg.parallel_ssm:
+            p["attn_branch_norm"] = norm()
+            p["ssm_branch_norm"] = norm()
     if cfg.post_norms:
-        p["post_attn_norm"] = pp.zeros_init((d,), ("d_model",), device=device)
-    if cfg.d_ff > 0:
-        p["pre_ffn_norm"] = pp.zeros_init((d,), ("d_model",), device=device)
-        p["ffn"] = ffn_lib.ffn_init(ks[2], d, cfg.d_ff, dtype=dtype,
-                                    device=device)
+        p["post_attn_norm"] = norm()
+    if cfg.family != "ssm" and cfg.d_ff > 0:
+        p["pre_ffn_norm"] = norm()
+        if moe:
+            p["moe"] = ffn_lib.moe_init(ks[2], cfg, dtype, device)
+        else:
+            p["ffn"] = ffn_lib.ffn_init(ks[2], d, cfg.d_ff, dtype=dtype,
+                                        device=device)
         if cfg.post_norms:
-            p["post_ffn_norm"] = pp.zeros_init((d,), ("d_model",),
-                                               device=device)
+            p["post_ffn_norm"] = norm()
     return p
 
 
@@ -102,7 +111,7 @@ def model_init(key, cfg: ModelConfig, dtype=torch.float32, device=None):
     cast once; layers are drawn one at a time into the stacked tensors, so
     the init holds one layer beyond the model.  On the meta device nothing
     is drawn (``abstract``)."""
-    require_dense(cfg)
+    refuse_unported(cfg)
     ks = prng.split(key, cfg.n_layers + 3)
     tree: Dict[str, Any] = {
         "embed": pp.embed_init(ks[0], cfg.padded_vocab, cfg.d_model,
@@ -116,7 +125,8 @@ def model_init(key, cfg: ModelConfig, dtype=torch.float32, device=None):
             dtype=dtype, device=device)
     stacked = layer_axes = None
     for l in range(cfg.n_layers):
-        vals, axes = pp.split(layer_init(ks[3 + l], cfg, moe=False,
+        vals, axes = pp.split(layer_init(ks[3 + l], cfg,
+                                         moe=cfg.family == "moe",
                                          dtype=dtype, device=device))
         if stacked is None:
             layer_axes = axes
@@ -163,26 +173,45 @@ def _attention_block(p, x, cfg: ModelConfig, window: int, positions,
 
 def _ffn_block(p, x, cfg: ModelConfig):
     h2 = pp.rms_norm(x, p["pre_ffn_norm"], cfg.norm_eps)
-    f = ffn_lib.ffn_apply(p["ffn"], h2, cfg.act)
+    if "moe" in p:
+        f = ffn_lib.moe_apply(p["moe"], h2, cfg, cfg.act)
+    else:
+        f = ffn_lib.ffn_apply(p["ffn"], h2, cfg.act)
     if cfg.post_norms:
         f = pp.rms_norm(f, p["post_ffn_norm"], cfg.norm_eps)
     return x + f
 
 
+def _parallel_branches(p, a_out, s_out, cfg: ModelConfig):
+    """Hybrid: the mean of the normed attention and SSM outputs."""
+    return 0.5 * (pp.rms_norm(a_out, p["attn_branch_norm"], cfg.norm_eps)
+                  + pp.rms_norm(s_out, p["ssm_branch_norm"], cfg.norm_eps))
+
+
 def layer_apply(p, x, cfg: ModelConfig, window: int, positions,
                 attend: Callable, extra_mask=None, collect_kv: bool = False):
-    """One layer.  Returns (x, (k, v) or None): the cache material only
-    when ``collect_kv`` (prefill)."""
+    """One layer.  Returns (x, (kv or None, ssm_state or None)): the cache
+    material only when ``collect_kv`` (prefill)."""
+    kv = ssm_state = None
     h = pp.rms_norm(x, p["pre_attn_norm"], cfg.norm_eps)
-    a_out, kv = _attention_block(p["attn"], h, cfg, window, positions,
-                                 attend, extra_mask=extra_mask)
-    if cfg.post_norms:
-        a_out = pp.rms_norm(a_out, p["post_attn_norm"], cfg.norm_eps)
-    x = x + a_out
-    if cfg.d_ff > 0:
-        x = _ffn_block(p, x, cfg)
+    if cfg.family == "ssm":
+        s_out, ssm_state = ssm_lib.ssm_apply_with_state(p["ssm"], h, cfg)
+        x = x + s_out
+    else:
+        a_out, kv = _attention_block(p["attn"], h, cfg, window, positions,
+                                     attend, extra_mask=extra_mask)
+        if cfg.parallel_ssm:
+            s_out, ssm_state = ssm_lib.ssm_apply_with_state(p["ssm"], h, cfg)
+            a_out = _parallel_branches(p, a_out, s_out, cfg)
+        if cfg.post_norms:
+            a_out = pp.rms_norm(a_out, p["post_attn_norm"], cfg.norm_eps)
+        x = x + a_out
+        if cfg.d_ff > 0:
+            x = _ffn_block(p, x, cfg)
     x = constrain(x, ("batch", "seq", "embed_act"))
-    return x, (kv if collect_kv else None)
+    if not collect_kv:
+        kv, ssm_state = None, None
+    return x, (kv, ssm_state)
 
 
 # -------------------------------------------------------------------- forward
@@ -221,10 +250,11 @@ def forward(values, cfg: ModelConfig, tokens, attend: Callable,
             img_embeds=None, remat_policy: Optional[str] = None,
             collect_kv: bool = False):
     """Train/prefill forward over tokens (B, S).  Returns (logits, kvs):
-    kvs a list of each layer's (k, v) when ``collect_kv``, else None.
+    kvs a list of each layer's ((k, v) or None, SSM state or None) when
+    ``collect_kv``, else None.
     ``remat_policy`` is the reference's jit memory policy; eager torch
     recomputes nothing, and the values do not depend on it."""
-    require_dense(cfg)
+    refuse_unported(cfg)
     del img_embeds, remat_policy
     x = embed_tokens(values, cfg, tokens)
     S = x.shape[1]
@@ -242,37 +272,50 @@ def forward(values, cfg: ModelConfig, tokens, attend: Callable,
 # ------------------------------------------------------------------- serving
 class LayerCache(NamedTuple):
     kv: Optional[attn.KVCache]
-    ssm: Optional[Any]          # the SSM state, for the families to come
+    ssm: Optional[ssm_lib.SSMState]
 
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device=None) -> List[LayerCache]:
     """Per-layer decode caches: rings of ``window`` slots for local layers
-    shorter than ``max_seq``, linear caches of ``max_seq`` otherwise."""
-    require_dense(cfg)
+    shorter than ``max_seq``, linear caches of ``max_seq`` otherwise (none
+    for the SSM family); SSM states for the SSM and hybrid families."""
+    refuse_unported(cfg)
     KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     caches = []
     for window in cfg.layer_kinds():
-        slots = window if window and window < max_seq else max_seq
-        caches.append(LayerCache(
-            kv=attn.init_cache(batch, slots, KV, Dh, dtype, device), ssm=None))
+        kv = ssm = None
+        if cfg.family != "ssm":
+            slots = window if window and window < max_seq else max_seq
+            kv = attn.init_cache(batch, slots, KV, Dh, dtype, device)
+        if cfg.family in ("ssm", "hybrid"):
+            ssm = ssm_lib.ssm_init_state(cfg, batch, dtype, device)
+        caches.append(LayerCache(kv=kv, ssm=ssm))
     return caches
 
 
 def decode_step(values, cfg: ModelConfig, caches: List[LayerCache], token,
                 pos: int):
     """One decode step: token (B, 1) at position ``pos``.  Returns (logits
-    (B, 1, V), caches), each layer's cache written in place."""
-    require_dense(cfg)
+    (B, 1, V), caches): each layer's KV cache written in place, its SSM
+    state replaced by the stepped one."""
+    refuse_unported(cfg)
     x = embed_tokens(values, cfg, token)
     x = constrain(x, ("batch", None, "embed_act"))
     B = x.shape[0]
     H, Dh, KV = cfg.n_heads, cfg.resolved_head_dim, cfg.n_kv_heads
     pos_arr = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    new_caches = []
     for l, window in enumerate(cfg.layer_kinds()):
         p = layer_slice(values, l)
-        pa = p["attn"]
+        kv, ssm = caches[l]
         h = pp.rms_norm(x, p["pre_attn_norm"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            out, ssm = ssm_lib.ssm_step(p["ssm"], h, ssm, cfg)
+            x = x + out
+            new_caches.append(LayerCache(kv=kv, ssm=ssm))
+            continue
+        pa = p["attn"]
         q = (h @ pa["wq"].to(h.dtype)).reshape(B, 1, H, Dh)
         k = (h @ pa["wk"].to(h.dtype)).reshape(B, 1, KV, Dh)
         v = (h @ pa["wv"].to(h.dtype)).reshape(B, 1, KV, Dh)
@@ -281,18 +324,21 @@ def decode_step(values, cfg: ModelConfig, caches: List[LayerCache], token,
             k = pp.rms_norm(k, pa["k_norm"], cfg.norm_eps)
         q = attn.apply_rope(q, pos_arr, cfg.rope_theta)
         k = attn.apply_rope(k, pos_arr, cfg.rope_theta)
-        kv = caches[l].kv
         ring = attn.is_ring(window, kv.k.shape[1])
         attn.cache_update(kv, k, v, pos, ring)
         a = attn.decode_attend(q, kv, pos, ring, KV, window=window,
                                softcap_val=cfg.attn_softcap)
         a_out = a.reshape(B, 1, H * Dh) @ pa["wo"].to(h.dtype)
+        if cfg.parallel_ssm:
+            s_out, ssm = ssm_lib.ssm_step(p["ssm"], h, ssm, cfg)
+            a_out = _parallel_branches(p, a_out, s_out, cfg)
         if cfg.post_norms:
             a_out = pp.rms_norm(a_out, p["post_attn_norm"], cfg.norm_eps)
         x = x + a_out
         if cfg.d_ff > 0:
             x = _ffn_block(p, x, cfg)
-    return unembed(values, cfg, x), caches
+        new_caches.append(LayerCache(kv=kv, ssm=ssm))
+    return unembed(values, cfg, x), new_caches
 
 
 def prefill(values, cfg: ModelConfig, tokens, attend: Callable,
@@ -302,7 +348,8 @@ def prefill(values, cfg: ModelConfig, tokens, attend: Callable,
     Local layers shorter than the prompt hand their last ``window`` keys
     over in the ring layout (slot s = the latest position with
     pos % W == s); the others are zero-padded out to ``max_seq`` slots so
-    decode has room to append (``transformer.py:346-383``).
+    decode has room to append; SSM layers hand off their final (h, conv)
+    state (``transformer.py:346-383``).
     """
     logits, kvs = forward(values, cfg, tokens, attend, img_embeds=img_embeds,
                           collect_kv=True)
@@ -310,18 +357,21 @@ def prefill(values, cfg: ModelConfig, tokens, attend: Callable,
     max_seq = max_seq or S
     caches: List[LayerCache] = []
     for window in cfg.layer_kinds():
-        k_l, v_l = kvs.pop(0)          # each layer's K/V freed as it goes
-        k_l = k_l.reshape(k_l.shape[0], S, -1)               # flat storage
-        v_l = v_l.reshape(v_l.shape[0], S, -1)
-        if window and window < S:
-            start = S - window
-            kv = attn.KVCache(torch.roll(k_l[:, start:], start % window, 1),
-                              torch.roll(v_l[:, start:], start % window, 1))
-        elif max_seq > S:
-            pad = (0, 0, 0, max_seq - S)
-            kv = attn.KVCache(torch.nn.functional.pad(k_l, pad),
-                              torch.nn.functional.pad(v_l, pad))
-        else:
-            kv = attn.KVCache(k_l, v_l)
-        caches.append(LayerCache(kv=kv, ssm=None))
+        kv_l, ssm_state = kvs.pop(0)    # each layer's K/V freed as it goes
+        kv = None
+        if kv_l is not None:
+            k_l, v_l = kv_l
+            k_l = k_l.reshape(k_l.shape[0], S, -1)           # flat storage
+            v_l = v_l.reshape(v_l.shape[0], S, -1)
+            if window and window < S:
+                start = S - window
+                kv = attn.KVCache(torch.roll(k_l[:, start:], start % window, 1),
+                                  torch.roll(v_l[:, start:], start % window, 1))
+            elif max_seq > S:
+                pad = (0, 0, 0, max_seq - S)
+                kv = attn.KVCache(torch.nn.functional.pad(k_l, pad),
+                                  torch.nn.functional.pad(v_l, pad))
+            else:
+                kv = attn.KVCache(k_l, v_l)
+        caches.append(LayerCache(kv=kv, ssm=ssm_state))
     return logits, caches

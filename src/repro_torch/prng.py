@@ -23,8 +23,10 @@ equal ``jax.random``'s bit for bit, and so do ``normal`` and
 runs on the CPU, op for op: ``erf_inv`` is XLA's expansion (Giles'
 polynomial, a correctly rounded sqrt), and ``log`` / ``log1p`` are XLA's
 compiled Cephes functions, their multiply-adds fused as XLA's are
-(``xla_log``, ``xla_log1p``).  Nothing here is compiled: ``uniform``'s
-multiply and add must stay two roundings, as XLA's are.
+(``xla_log``, ``xla_log1p``).  ``xla_exp``, XLA's Cephes exp, serves the
+MoE router's softmax (``models.ffn.softmax_f32``).  Nothing here is
+compiled: ``uniform``'s multiply and add must stay two roundings, as
+XLA's are.
 
 Draws of more than ``CHUNK`` values are made ``CHUNK`` counters at a time
 into their output, so the int64 temporaries stay small however large the
@@ -63,6 +65,12 @@ _LOG1P_NUM = (4.527000055531971e-05, 0.4985410273075104, 6.578732490539551,
               29.91191864013672, 60.949668884277344, 57.112964630126953,
               20.039552688598633)
 _LOG1P_SMALL = 0.4142135679721832
+# XLA's CPU float32 exp (Cephes expf)
+_EXP_LO, _EXP_HI = -88.3762626647949, 88.3762626647950
+_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+          1.6666665459e-1, 5.0000001201e-1)
 
 
 def _f32(x) -> float:
@@ -232,6 +240,23 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     r = torch.where(x > 0.0, r, math.nan)
     r = torch.where(x.abs() < _TINY, -math.inf, r)
     return torch.where(x == math.inf, math.inf, r)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 exp, op for op (Cephes expf, with the fused
+    multiply-adds XLA's compiled function has): x clamped, n = floor(x
+    log2(e) + 1/2), r = x - n ln 2 in two parts, a degree-5 polynomial,
+    times 2^n; denormal results read as 0."""
+    x = torch.clamp(x, _f32(_EXP_LO), _f32(_EXP_HI))
+    n = torch.floor(_fma(x, _f32(_LOG2E), 0.5))
+    r = _fma(n, -_f32(_EXP_C1), x)
+    r = _fma(n, -_f32(_EXP_C2), r)
+    y = _fma(r, _f32(_EXP_P[0]), _f32(_EXP_P[1]))
+    for c in _EXP_P[2:]:
+        y = _fma(y, r, _f32(c))
+    y = 1.0 + _fma(y, r * r, r)
+    out = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(out < _TINY, 0.0, out)
 
 
 def xla_log1p(x: torch.Tensor) -> torch.Tensor:

@@ -574,3 +574,96 @@ def test_build_refuses_a_head_dim_beyond_the_kernel(cuda):
         lm.build(cfg, device=cuda)
     plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
     assert plain.attention == "flash_attention_plain"
+
+
+@pytest.mark.parametrize("G,S,E,k,C,kind", [
+    (4, 1024, 64, 6, 120, "random"), (4, 512, 64, 6, 60, "random"),
+    (4, 1, 64, 6, 1, "random"), (2, 64, 8, 2, 20, "tied"),
+    (3, 128, 64, 6, 30, "tied"), (2, 64, 64, 6, 5, "overflow")])
+def test_moe_route_on_the_card_equals_the_cpu(G, S, E, k, C, kind, cuda):
+    """``ffn._route`` on the card gives the CPU's dispatch and combine bit
+    for bit (its softmax is XLA's exp and reduce order in exact ops, its
+    top-k a stable sort), ties and capacity overflow included."""
+    from repro_torch.models import ffn
+    rng = np.random.default_rng(0)
+    if kind == "random":
+        x = rng.standard_normal((G, S, E)) * 2
+    elif kind == "tied":
+        x = rng.integers(-2, 3, (G, S, E))
+    else:                                   # every token picks expert 0
+        x = np.zeros((G, S, E))
+        x[..., 0] = 10.0
+    x = torch.from_numpy(x.astype(np.float32))
+    want = ffn._route(x, k, C)
+    got = ffn._route(x.to(cuda), k, C)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(ffn.softmax_f32(x.to(cuda)).cpu(), ffn.softmax_f32(x))
+
+
+@pytest.mark.parametrize("arch,S,chunk", [("mamba2_780m", 512, 256),
+                                          ("hymba_1_5b", 512, 256),
+                                          ("mamba2_780m", 96, 32)])
+def test_ssd_scan_on_the_card_matches_the_cpu(arch, S, chunk, cuda):
+    """``ssm.ssd_scan`` at a full config's head widths (mamba2-780m: H 48,
+    P 64, N 128; hymba-1.5b: H 50, P 64, N 16) within 1e-4 of the CPU's,
+    output and final state, relative to each tensor's largest magnitude:
+    a chunk's sums run over 256 tokens x 128 states, in another order on
+    each device, and an output near 0 keeps the error of its terms."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    cfg = configs.get(arch)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((1, S, H, P)),
+        rng.standard_normal((1, S, 1, N)) * 0.5,
+        rng.standard_normal((1, S, 1, N)) * 0.5,
+        np.log1p(np.exp(rng.standard_normal((1, S, H)))),
+        -np.exp(np.linspace(-1.0, 1.0, H)), rng.uniform(0.5, 1.5, H))]
+    want = ssm.ssd_scan(*args, chunk)
+    got = ssm.ssd_scan(*(a.to(cuda) for a in args), chunk)
+    for g, w in zip(got, want):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (err, float(w.abs().max()))
+
+
+def test_new_families_build_on_the_kernel_route(cuda):
+    """deepseek-moe-16b (head_dim 128) and hymba-1.5b (64) take the flash
+    kernel on the card; mamba2-780m has no attention layer and still names
+    the route."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    for arch in ("deepseek-moe-16b", "hymba-1.5b", "mamba2-780m"):
+        assert lm.build(configs.get(arch), device=cuda).attention == \
+            "flash_attention"
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "hymba_1_5b",
+                                  "mamba2_780m"])
+def test_smoke_new_families_kernel_build_matches_plain(arch, cuda):
+    """The MoE, hybrid and SSM smoke configs (float32; the MoE at
+    capacity_factor 8) on the flash kernel against the plain build on the
+    same weights: prefill logits and six decode steps within atol 1e-3,
+    the kernel launched once a layer with attention."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32",
+                              capacity_factor=8.0)
+    kern = lm.build(cfg, device=cuda)
+    plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
+    values = kern.init(prng.PRNGKey(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 40)))
+    ops.reset_launch_counts()
+    lk, ck = kern.prefill_fn(values, {"tokens": toks}, max_seq=48)
+    assert ops.launch_counts()["flash_attention"] == (
+        0 if cfg.family == "ssm" else cfg.n_layers)
+    lp, cp = plain.prefill_fn(values, {"tokens": toks}, max_seq=48)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=1e-3)
+    tok = torch.argmax(lp[:, -1], dim=-1)[:, None]
+    for pos in range(40, 46):
+        sk, ck = kern.decode_fn(values, ck, tok, pos)
+        sp, cp = plain.decode_fn(values, cp, tok, pos)
+        torch.testing.assert_close(sk, sp, rtol=0, atol=1e-3)
+        tok = torch.argmax(sp[:, 0], dim=-1)[:, None]

@@ -1,10 +1,13 @@
 """Port parity: the LM slot engine (``repro_torch.serve.engine``) against
 the reference's ``ServingEngine`` on ``tests/test_serve.py``'s MICRO
-config and on gemma2's smoke config (float32), on the same weights
+config and on gemma2's, deepseek-moe's and hymba's smoke configs (float32;
+the MoE at ``capacity_factor`` 8.0, as the reference's decode test, so
+that the rollout property holds without drops), on the same weights
 (``api.init(PRNGKey(0))`` in both) and the same requests: greedy tokens
 are equal, and tokens sampled at temperature 1.0 from the same seed are
 equal (the port's ``prng.categorical`` is ``jax.random.categorical``).
-Then the launcher, ``python -m repro_torch.launch.serve --device cpu``."""
+Then the launcher, ``python -m repro_torch.launch.serve --device cpu``,
+on gemma2 and on the MoE, SSM and hybrid archs."""
 
 import dataclasses
 
@@ -28,12 +31,15 @@ from repro_torch.serve import engine as teng
 MICRO = dict(name="serve-micro", family="dense", n_layers=2, d_model=32,
              n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64, vocab=64,
              act="silu", tie_embeddings=False, dtype="float32")
-CONFIGS = {"micro": (JModelConfig(**MICRO), TModelConfig(**MICRO)),
-           "gemma2-smoke": tuple(
-               dataclasses.replace(c.get_smoke("gemma2_27b"), dtype="float32")
-               for c in (jconfigs, tconfigs))}
-# prompts of two lengths, one longer than gemma2-smoke's window (8): two
-# waves of two slots and a wave of one; max_new differs within a wave
+CONFIGS = {"micro": (JModelConfig(**MICRO), TModelConfig(**MICRO))}
+for _arch, _kw in (("gemma2_27b", {}),
+                   ("deepseek_moe_16b", dict(capacity_factor=8.0)),
+                   ("hymba_1_5b", {})):
+    CONFIGS[jconfigs.get_smoke(_arch).name] = tuple(
+        dataclasses.replace(c.get_smoke(_arch), dtype="float32", **_kw)
+        for c in (jconfigs, tconfigs))
+# prompts of two lengths, one longer than the smoke window (8): two waves
+# of two slots and a wave of one; max_new differs within a wave
 SPEC = [(0, 6, 5), (1, 6, 3), (2, 6, 5), (3, 11, 4), (4, 11, 6)]
 
 
@@ -104,3 +110,15 @@ def test_launcher_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[serve gemma2-smoke] 3 requests, 12 tokens" in out
     assert "attention flash_attention, cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-moe-16b",
+                                  "mamba2-780m", "hymba-1.5b"])
+def test_launcher_runs_the_new_families(arch, capsys):
+    done = tlaunch.main(["--device", "cpu", "--arch", arch, "--requests", "2",
+                         "--prompt-len", "10", "--max-new", "3"])
+    assert len(done) == 2 and all(r.out.shape == (3,) for r in done)
+    cfg = tconfigs.get_smoke(arch)
+    assert all(((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done)
+    assert f"[serve {cfg.name}] 2 requests, 6 tokens" in \
+        capsys.readouterr().out
