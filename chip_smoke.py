@@ -7,10 +7,12 @@ root of a checkout, on a machine with one NVIDIA H100.
    source, all started together).  ptxas must report a 0-byte stack frame
    and no spills for the hash encode, the four register-tiled kernels
    (density MLP, color MLP, fused field, fused march), the volume render
-   and both flash-attention instantiations (bf16, fp32), whose registers
-   it prints; the density, march and volume-render launchers must ask for
-   the shared memory their wrappers reckon, and the flash-attention
-   launcher must use the wrapper's tiles, shared memory and grid.
+   and the four flash-attention instantiations (bf16 and fp32, each at the
+   head-dim bounds 128 and 256), whose registers it prints; the density,
+   march and volume-render launchers must ask for the shared memory their
+   wrappers reckon, and the flash-attention launcher must use the
+   wrapper's tiles, shared memory, grid and key tiles at head_dim 64, 128
+   and 256.
 2. Runs each kernel against its plain PyTorch version on the card, at the
    main path's shapes: the hash encode, density and color MLPs and the
    fused field (both chains in one kernel, also held bit for bit against
@@ -61,7 +63,12 @@ root of a checkout, on a machine with one NVIDIA H100.
    the output's), the bf16 bounds on the tensor cores and on the
    special-function units; times ``scaled_dot_product_attention`` on both
    no-softcap settings; then at ``RAGGED_SEQ`` tokens, head_dim 64, H / KV
-   1 and 8, in both dtypes, global and windowed with the softcap.  The
+   1 and 8, in both dtypes, global and windowed with the softcap.  Then
+   at head_dim 256, gemma3-12b's widths (B 1, S ``WIDE_SEQ`` 4,608, 16
+   query heads over 8 KV heads, no softcap): its local layer (window
+   1,024) and its global layer in fp32 and in bf16, each at ``ATTN_TOL``
+   with its bound and SDPA's time (a window mask for the local layer);
+   then the ragged shapes at head_dim 256 (H / KV 16 / 8 and 8 / 1).  The
    kernel's JSON row is ``[lm]``'s, at the main path's shapes.
 
 6. ``[train]``: trains the paper-width NGP (``CONFIG.model``) on the card
@@ -164,7 +171,13 @@ root of a checkout, on a machine with one NVIDIA H100.
    main run: flash attention launched 46 x 2 times, every token in
    [0, vocab) and every logit finite, and layers 0 and 1's prefill
    attention on the longest wave held against ``flash_attention_plain``
-   on the q/k/v they had, at ``ATTN_TOL["bf16"]``.
+   on the q/k/v they had, at ``ATTN_TOL["bf16"]``.  Then gemma3-12b
+   (``configs/gemma3_12b.py`` CONFIG: 48 layers, d_model 3,840, 16 heads
+   over 8 KV x 256, five local layers of window 1,024 to one global, qk
+   norm, d_ff 15,360, vocab 262,144; 11.8e9 parameters) the same way on
+   the same waves, its head_dim 256 on the flash kernel: gate (a) at
+   ``WIDE_GATE_LAYERS`` (6: layer 5 global), gate (b) 48 x 2 launches,
+   without the sampled and profiled runs.
 
 10. ``[moe]``: deepseek-moe-16b (``configs/deepseek_moe_16b.py`` CONFIG,
    28 layers, d_model 2,048, 16 heads x 128, 64 routed experts top-6 and
@@ -192,13 +205,39 @@ root of a checkout, on a machine with one NVIDIA H100.
    the ring.  Each new phase prints the memory still allocated at its
    start.
 
+12. ``[vlm]``: paligemma-3b (18 layers, d_model 2,048, 8 heads over 1 KV
+   x 256, vocab 257,216; ~2.5e9 parameters in bf16) through ``lm.build``
+   -> ``api.prefill_fn`` / ``api.decode_fn`` (the serving engine, as the
+   reference's, passes no ``img_embeds``): ``VLM_RUN`` 4 requests of 256
+   numpy-seeded image embeddings (bf16) and 512 text tokens, 32 new tokens
+   each, greedy, decode positions after the prefix.  Readings: init,
+   prefill ms, decode ms a step, tokens/s, peak memory.  Gates, fatal:
+   fp32 at ``NEW_FAMILY_GATE_LAYERS`` layers, prefill of all but the last
+   token then one decode step against the full forward's last logits
+   within ``LM_GATE_ATOL``; the main run launches no flash kernel (the
+   prefix mask sends every layer's prefill to ``attend_chunked``, as the
+   reference's), tokens in range, logits finite.
+
+13. ``[encdec]``: whisper-medium (24 + 24 layers, d_model 1,024, 16 x 64,
+   1,500 encoder frames; ~0.79e9 parameters) through ``lm.build``:
+   ``api.prefill_fn`` on ``ENCDEC_RUN`` 4 requests of numpy-seeded frames
+   (bf16) and 64-token prompts (the encoder, ``decode_train`` with its
+   causal self-attention on the flash kernel, the cross K/V), then as the
+   reference's own test serves it: ``encdec.init_cache`` with the cross
+   K/V, the prompt decoded one token at a time from position 0, then 32
+   new tokens, greedy.  Readings as ``[vlm]``'s.  Gates, fatal: fp32 at 2
+   + 2 layers, the token-by-token decode's last logits against
+   ``decode_train``'s within ``LM_GATE_ATOL``; 24 flash launches in the
+   main run, tokens in range, logits finite.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
 ``[train]``, the two trained frames together; for ``[reuse]``, the
 trajectory; for ``[serve]``, the main run; for ``[lm]``, ``[moe]`` and
 ``[ssm]``, the main run's ``generate``, with exactly one flash launch a
-layer with attention a wave; mamba2-780m launches none.  The JSON row's
-launches are ``[lm]``'s).
+layer with attention a wave; mamba2-780m launches none; for ``[vlm]`` and
+``[encdec]`` their main runs: none, and one a decoder layer).  The JSON
+row of flash attention carries the sum of the LM main runs' launches.
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
 reference layout: Glorot-uniform MLPs and hash tables
@@ -209,7 +248,7 @@ asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
 ``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``,
-``[lm]``, ``[moe]`` and ``[ssm]``.  Prints one
+``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]`` and ``[encdec]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -285,7 +324,9 @@ DECOUPLED_RAYS_PER_CALL = 1 << 16
 PLAIN_ROWS = 1 << 20
 # The kernels ptxas must give a 0-byte stack frame and no spills (the
 # hash encode's instantiations, the register-tiled chains, the volume
-# render and both flash-attention instantiations), with their sources.
+# render and the flash-attention instantiations), with their sources;
+# each flash-attention kernel must report both head-dim bounds'
+# instantiations (TILE_INSTANCES), each with its registers.
 TILE_KERNELS = {"hash_encode_kernel": "hash_encode",
                 "color_mlp_kernel": "fused_mlp",
                 "fused_field_kernel": "fused_mlp",
@@ -294,6 +335,8 @@ TILE_KERNELS = {"hash_encode_kernel": "hash_encode",
                 "volume_render_kernel": "volume_render",
                 "flash_attention_bf16_kernel": "flash_attention",
                 "flash_attention_f32_kernel": "flash_attention"}
+TILE_INSTANCES = {"flash_attention_bf16_kernel": ("<128>", "<256>"),
+                  "flash_attention_f32_kernel": ("<128>", "<256>")}
 # The ragged march: blocks of a size that is not a multiple of 32, group
 # 3, budgets below the chunk among them, per-ray exit.
 RAGGED_B, RAGGED_GROUP = 1000, 3
@@ -305,6 +348,9 @@ RAGGED_SEQ, RAGGED_WINDOW = 333, 100
 # off the chunk (S % 4 != 0 and == 0), one anchor or a group's worth.
 RAGGED_RENDERS = ((1005, 50, 1, 3), (1005, 50, 17, 3), (1005, 52, 18, 3))
 ATTN_SEQ = 8192
+# Flash attention at head_dim 256: gemma3-12b's widths (H 16 over KV 8) over
+# [lm]'s longest wave, 4,608 tokens.
+WIDE_SEQ = 4608
 # fp32 operations of one sample of the volume render: sigma*delta, two
 # negations and two exps, 1 - e, the weight, the running sum, acc and the
 # lerp offset (10), then per channel the lerp (3) and the weighted add (2).
@@ -569,13 +615,14 @@ def check_march_ragged(o, d, res, net, common, dev):
                                  f"at the ragged shape, chunk {chunk}")
 
 
-def check_smem(bundle, attn):
+def check_smem(bundle, attn, wide):
     """The shared memory the density, march and volume-render launchers
     ask for at ``bundle``'s widths (the decoupled frame's, and the ragged
     renders') equals the wrappers' reckoning (which the first two check
     against SMEM_LIMIT before a launch); the flash-attention launcher's
-    tiles, shared memory and grid at ``attn``'s widths, and the key tiles
-    its kernels load for each query tile, are the wrapper's."""
+    tiles, shared memory and grid at head_dim 64 (the ragged shapes), at
+    ``attn``'s (128) and at ``wide``'s (256), and the key tiles its kernels
+    load for each query tile, are the wrapper's."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_march as FMA
@@ -598,29 +645,35 @@ def check_smem(bundle, attn):
         pairs.append((f"volume_render S={S} A={A} group {g}",
                       VR.volume_render_launch_smem(S, A, g),
                       VR.volume_render_smem_bytes(S, A, g)))
+    attn_cases = ((64, RAGGED_SEQ, attn.n_heads, (0, RAGGED_WINDOW)),
+                  (attn.head_dim, ATTN_SEQ, attn.n_heads, (0, attn.window)),
+                  (wide.head_dim, WIDE_SEQ, wide.n_heads, (0, wide.window)),
+                  (wide.head_dim, RAGGED_SEQ, wide.n_heads,
+                   (0, RAGGED_WINDOW)))
     for dt in (torch.float32, torch.bfloat16):
-        for Dh, S in ((attn.head_dim, ATTN_SEQ), (64, RAGGED_SEQ)):
-            got = FA.launch_config(Dh, 1, S, attn.n_heads, dt)
-            want = (FA.QUERY_TILE[dt], FA.KEY_TILE[dt], FA.smem_bytes(Dh, dt),
-                    *FA.grid(1, S, attn.n_heads, dt))
+        for Dh, S, H, windows in attn_cases:
+            got = FA.launch_config(Dh, 1, S, H, dt)
+            want = (*FA.tiles(Dh, dt), FA.smem_bytes(Dh, dt),
+                    *FA.grid(1, S, H, Dh, dt))
             print(f"[build] flash_attention {dt} head_dim {Dh} S {S}: the "
                   f"launcher's (query rows, keys, shared memory, grid) "
                   f"{got}, the wrapper's {want}", flush=True)
             if got != want or got[2] > FM.SMEM_LIMIT:
                 raise AssertionError(f"flash_attention {dt}: launch "
                                      f"configuration {got}, reckoned {want}")
-        for S, w in ((ATTN_SEQ, 0), (ATTN_SEQ, attn.window), (RAGGED_SEQ, 0),
-                     (RAGGED_SEQ, RAGGED_WINDOW)):
-            bad = [q0 for q0 in range(0, S, FA.QUERY_TILE[dt])
-                   if FA.launched_key_tiles(q0, S, w, dt)
-                   != FA.key_tiles(q0, S, w, dt)]
-            print(f"[build] flash_attention {dt} S {S} window {w}: the "
-                  f"kernel's key tiles differ from the wrapper's at "
-                  f"{len(bad)} of {-(-S // FA.QUERY_TILE[dt])} query tiles",
-                  flush=True)
-            if bad:
-                raise AssertionError(f"flash_attention {dt}: the kernel loads "
-                                     f"other key tiles at query tiles {bad}")
+            qb = FA.tiles(Dh, dt)[0]
+            for w in windows:
+                bad = [q0 for q0 in range(0, S, qb)
+                       if FA.launched_key_tiles(q0, S, w, Dh, dt)
+                       != FA.key_tiles(q0, S, w, Dh, dt)]
+                print(f"[build] flash_attention {dt} head_dim {Dh} S {S} "
+                      f"window {w}: the kernel's key tiles differ from the "
+                      f"wrapper's at {len(bad)} of {-(-S // qb)} query "
+                      f"tiles", flush=True)
+                if bad:
+                    raise AssertionError(
+                        f"flash_attention {dt} head_dim {Dh}: the kernel "
+                        f"loads other key tiles at query tiles {bad}")
     for name, got, want in pairs:
         print(f"[build] {name}: the launcher asks for {got} B of shared "
               f"memory, the wrapper reckons {want} B (limit "
@@ -1904,7 +1957,7 @@ LM_SAMPLE_SEED = 0                 # the temperature-1.0 run of wave A
 # plain build on the same weights (gemma2-27b: one local, one global layer).
 LM_GATE_LAYERS = 2
 LM_GATE_ATOL = 1e-3
-LM_REPS = 3                        # CUDA-event repeats of the attention
+LM_REPS = 20                       # CUDA-event repeats of the attention
 # The [moe] and [ssm] phases: deepseek-moe-16b (28 MoE layers of 64 experts
 # top-6 + 2 shared, d_model 2,048, MHA 16 x 128), then mamba2-780m (48
 # attention-free SSD layers) and hymba-1.5b (32 layers of parallel
@@ -1929,6 +1982,20 @@ FAMILY_GATE_LAYERS = {"deepseek-moe-16b": 2, "mamba2-780m": 2,
 # grouping, which the check asserts by counting drops).
 GATE_CAPACITY = 8.0
 MAX_FLIP_SHARE = 1e-3              # routed token-layers whose experts differ
+# gemma3-12b in [lm]: gate (a) at 6 layers, five local (window 1,024) and
+# layer 5 global, its 5:1 pattern's first period.
+WIDE_GATE_LAYERS = 6
+# The [vlm] phase: paligemma-3b served at full width and depth through
+# api.prefill_fn / api.decode_fn (the engine passes no img_embeds, as the
+# reference's): requests of an image prefix of 256 numpy-seeded embeddings
+# and a prompt of 512 tokens, 32 new tokens each, greedy; gate at 2 layers
+# in fp32.  The [encdec] phase: whisper-medium (24 + 24 layers) on 1,500
+# frames a request, a prompt of 64 tokens decoded one at a time from
+# position 0 over the cross K/V (the reference's serving flow: prefill_fn
+# hands over no self-KV cache), then 32 new; gate at 2 + 2 layers in fp32.
+VLM_RUN = (4, 512, 32)             # (requests, prompt, new tokens)
+ENCDEC_RUN = (4, 64, 32)
+NEW_FAMILY_GATE_LAYERS = 2
 
 
 def lm_requests(cfg, waves, seed=SEED):
@@ -2190,7 +2257,6 @@ def lm_attention_readings(cfg, waves, dev, reps=LM_REPS, tag="[lm]",
     global layer where ``json_row``."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -2208,14 +2274,7 @@ def lm_attention_readings(cfg, waves, dev, reps=LM_REPS, tag="[lm]",
                                                        softcap=c), dev, reps)
             want, plain_ms = timed(lambda: FA.flash_attention_plain(*x, w, c),
                                    dev, 1)
-            qt, kt, vt = (t.transpose(1, 2) for t in x)
-            mask = None
-            if w and w < S:
-                i = torch.arange(S, device=dev)
-                mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
-            _, lib_ms = timed(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True), dev, reps)
+            _, lib_ms = sdpa_ms(x, w, dev, reps)
             pairs = B * H * sum(min(i + 1, w or S) for i in range(S))
             flop = 4 * Dh * pairs
             nbytes = 2 * 2 * (x[0].numel() + x[1].numel())
@@ -2235,10 +2294,48 @@ def lm_attention_readings(cfg, waves, dev, reps=LM_REPS, tag="[lm]",
                   f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}"
                   f"{attention_bounds(torch.bfloat16, flop, pairs, c)}); "
                   f"SDPA without the softcap (it has none"
-                  f"{', a window mask' if mask is not None else ', causal'}) "
+                  f"{', a window mask' if w and w < S else ', causal'}) "
                   f"{lib_ms:.3f} ms", flush=True)
             del out, want
     return row
+
+
+def attention_recorder(n=2):
+    """(attention, seen): the kernel route ``ops.flash_attention``, keeping
+    its first ``n`` calls' (q, k, v, window, softcap, out) in ``seen``."""
+    from repro_torch.kernels import ops
+
+    seen = []
+
+    def recording(q, k, v, window, softcap):
+        out = ops.flash_attention(q, k, v, window, softcap)
+        if len(seen) < n:
+            seen.append((q, k, v, window, softcap, out))
+        return out
+
+    return recording, seen
+
+
+def check_recorded(tag, seen, want, what):
+    """Hold each recorded layer's kernel output against
+    ``flash_attention_plain`` on its own q/k/v at ATTN_TOL["bf16"]; fail
+    unless ``want`` layers were recorded and all agree."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rtol, atol, rel = ATTN_TOL["bf16"]
+    ok = len(seen) >= want
+    for l, (q, k, v, w, c, out) in enumerate(seen):
+        ref = FA.flash_attention_plain(q, k, v, w, c)
+        err, close = max_err(out, ref, rtol, atol)
+        r = rel_norm_err(out, ref)
+        ok = ok and close and r <= rel
+        print(f"{tag} layer {l} (window {w}) {what} on its own q/k/v "
+              f"{tuple(q.shape)} {q.dtype}, kernel vs plain: "
+              f"max_abs_err={err:.3e} rel_norm_err={r:.3e} (rtol {rtol}, "
+              f"atol {atol}, norm {rel})", flush=True)
+    if not ok:
+        raise AssertionError(f"{tag} a layer's {what} disagrees with the "
+                             f"plain version")
 
 
 def lm_layer_attention(cfg, values, reqs, max_seq, dev, tag="[lm]"):
@@ -2249,18 +2346,9 @@ def lm_layer_attention(cfg, values, reqs, max_seq, dev, tag="[lm]"):
     capacity, over its layers (0 without MoE)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
-    seen = []
-
-    def recording(q, k, v, window, softcap):
-        out = ops.flash_attention(q, k, v, window, softcap)
-        if len(seen) < 2:
-            seen.append((q, k, v, window, softcap, out))
-        return out
-
+    recording, seen = attention_recorder()
     api = lm.build(cfg, device=dev, attention=recording)
     plen = max(len(r.prompt) for r in reqs)
     toks = np.stack([r.prompt for r in reqs if len(r.prompt) == plen])
@@ -2268,20 +2356,8 @@ def lm_layer_attention(cfg, values, reqs, max_seq, dev, tag="[lm]"):
         logits, caches = api.prefill_fn(values, {"tokens": torch.from_numpy(
             toks[:LM_SLOTS])}, max_seq=max_seq)
     del logits, caches
-    rtol, atol, rel = ATTN_TOL["bf16"]
-    ok = True
-    for l, (q, k, v, w, c, out) in enumerate(seen):
-        want = FA.flash_attention_plain(q, k, v, w, c)
-        err, close = max_err(out, want, rtol, atol)
-        r = rel_norm_err(out, want)
-        ok = ok and close and r <= rel
-        print(f"{tag} gate (b): layer {l} (window {w}) prefill attention on "
-              f"its own q/k/v {tuple(q.shape)}, kernel vs plain: "
-              f"max_abs_err={err:.3e} rel_norm_err={r:.3e} (rtol {rtol}, "
-              f"atol {atol}, norm {rel})", flush=True)
-    if len(seen) < min(2, attention_layers(cfg)) or not ok:
-        raise AssertionError(f"{tag} gate (b): a layer's prefill attention "
-                             f"disagrees with the plain version")
+    check_recorded(f"{tag} gate (b):", seen, min(2, attention_layers(cfg)),
+                   "prefill attention")
     return routes.drops()
 
 
@@ -2440,6 +2516,294 @@ def run_families(dev, families=FAMILIES, waves=FAMILY_WAVES,
     return launches
 
 
+def generate_greedy(step, first_logits, new, dev):
+    """Greedy tokens: the first from ``first_logits`` (B, V), then
+    ``new - 1`` more, each from ``step(tok, s)``'s logits (B, 1, V), every
+    call timed on the host clock around a synchronize.  Returns (tokens
+    (B, new) on the host, the steps' ms)."""
+    import torch
+    tok = torch.argmax(first_logits, dim=-1)[:, None]
+    outs, ms = [tok], []
+    for s in range(new - 1):
+        logits, t_ms = host_ms(lambda: step(tok, s), dev)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits in a decode step")
+        tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        outs.append(tok)
+        ms.append(t_ms)
+    return torch.cat(outs, dim=1).cpu().numpy(), ms
+
+
+def new_family_readings(tag, cfg, n_par, init_ms, pre_ms, dec_ms, gen, wall,
+                        n_launch, dev):
+    """Print a [vlm] / [encdec] main run's readings; fail unless every token
+    is in [0, vocab)."""
+    import numpy as np
+    import torch
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    in_range = bool(((gen >= 0) & (gen < cfg.vocab)).all())
+    print(f"{tag} {cfg.name}: {n_par} parameters (param_count "
+          f"{cfg.param_count()}) in {cfg.dtype}, init {init_ms / 1e3:.1f} s; "
+          f"prefill {pre_ms:.1f} ms; decode, batch {gen.shape[0]}: "
+          f"{len(dec_ms)} steps, median {float(np.median(dec_ms)):.2f} ms a "
+          f"step (min {min(dec_ms):.2f}, max {max(dec_ms):.2f}); "
+          f"{gen.size} new tokens in {wall:.2f} s ({gen.size / wall:.1f} "
+          f"tokens/s); peak memory {peak:.2f} GB; flash_attention launched "
+          f"{n_launch} times; tokens in [0, vocab) {in_range}; first tokens "
+          f"{gen[:, 0].tolist()}", flush=True)
+    if not in_range:
+        raise AssertionError(f"{tag} a token is out of range")
+
+
+def run_vlm(dev, run=VLM_RUN, smoke=False):
+    """[vlm]: paligemma-3b (``smoke``: its SMOKE) through ``lm.build`` ->
+    ``api.prefill_fn`` / ``api.decode_fn``: numpy-seeded ``img_embeds``
+    (bf16 on the card) before each prompt, then greedy decode at positions
+    after the prefix.  Gate, fatal: fp32 at NEW_FAMILY_GATE_LAYERS layers,
+    prefill of the prompt but its last token then one decode step against
+    the full forward's last logits, within LM_GATE_ATOL.  The prefix mask
+    sends every layer's prefill attention to ``attend_chunked``, as in the
+    reference: the main run launches no flash kernel, which it asserts.
+    Returns that run's flash launches (0)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, transformer
+    from repro_torch.models.params import tree_leaves
+
+    tag, t_phase = "[vlm]", time.perf_counter()
+    free_card(dev, tag)
+    cfg = (configs.get_smoke if smoke else configs.get)("paligemma_3b")
+    n, prompt, new = run
+    P = cfg.prefix_tokens
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n, prompt)).astype(
+        np.int32)).to(dev)
+    img = torch.from_numpy(rng.standard_normal(
+        (n, P, cfg.d_model), dtype=np.float32)).to(dev)
+
+    gcfg = dataclasses.replace(cfg, n_layers=min(NEW_FAMILY_GATE_LAYERS,
+                                                 cfg.n_layers), dtype="float32")
+    gapi = lm.build(gcfg, device=dev)
+    gv = gapi.init(prng.PRNGKey(LM_INIT_SEED))
+    attend = lm._route(gcfg, None, gapi.device)[0]
+    full, _ = transformer.forward(gv, gcfg, toks[:2], attend,
+                                  img_embeds=img[:2])
+    _, caches = gapi.prefill_fn(gv, {"tokens": toks[:2, :-1],
+                                     "img_embeds": img[:2]},
+                                max_seq=P + prompt)
+    step, _ = gapi.decode_fn(gv, caches, toks[:2, -1:], P + prompt - 1)
+    err = float((step[:, 0] - full[:, -1]).abs().max())
+    print(f"{tag} gate: fp32, {gcfg.n_layers} layers, 2 x ({P} + {prompt}) "
+          f"tokens: prefill of all but the last token, then one decode step at "
+          f"position {P + prompt - 1}, against the full forward's last "
+          f"logits: max_abs_err={err:.3e} (limit {LM_GATE_ATOL})", flush=True)
+    if not err <= LM_GATE_ATOL:
+        raise AssertionError(f"{tag} gate failed")
+    del gv, full, caches, step
+    free_card(dev, tag)
+
+    api = lm.build(cfg, device=dev)
+    dtype = transformer.compute_dtype(cfg)
+    values, init_ms = host_ms(lambda: api.init(prng.PRNGKey(LM_INIT_SEED),
+                                               dtype=dtype), dev)
+    n_par = sum(v.numel() for v in tree_leaves(values))
+    batch = {"tokens": toks, "img_embeds": img.to(dtype)}
+    ops.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    (logits, caches), pre_ms = host_ms(lambda: api.prefill_fn(
+        values, batch, max_seq=P + prompt + new), dev)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} non-finite prefill logits")
+    first = logits[:, -1]
+    del logits
+
+    def step_fn(tok, s):
+        nonlocal caches
+        logits, caches = api.decode_fn(values, caches, tok, P + prompt + s)
+        return logits
+
+    gen, dec_ms = generate_greedy(step_fn, first, new, dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    n_launch = ops.launch_counts()["flash_attention"]
+    new_family_readings(tag, cfg, n_par, init_ms, pre_ms, dec_ms, gen, wall,
+                        n_launch, dev)
+    if n_launch:
+        raise AssertionError(f"{tag} the prefix-masked prefill launched the "
+                             f"flash kernel {n_launch} times")
+    del values, caches
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return n_launch
+
+
+def encdec_prompt_decode(api, values, cfg, toks, cross, dtype, seq, dev):
+    """The prompts ``toks`` decoded one token at a time from position 0
+    over a fresh ``encdec`` cache of ``seq`` slots holding ``cross`` (the
+    cross K/V).  Returns the last step's logits (B, 1, V)."""
+    from repro_torch.models import encdec
+
+    cache = encdec.init_cache(cfg, toks.shape[0], seq, dtype, dev)._replace(
+        cross_k=cross[0], cross_v=cross[1])
+    for s in range(toks.shape[1]):
+        lg, cache = api.decode_fn(values, cache, toks[:, s:s + 1], s)
+    return lg
+
+
+def run_encdec(dev, run=ENCDEC_RUN, smoke=False):
+    """[encdec]: whisper-medium (``smoke``: its SMOKE) through ``lm.build``:
+    ``api.prefill_fn`` on numpy-seeded frames and the prompts (the encoder,
+    ``decode_train`` with its causal self-attention on the flash kernel,
+    the cross K/V), then as the reference's own test serves it:
+    ``encdec.init_cache``, the cross K/V, the prompt decoded one token at a
+    time from position 0, then the new tokens, greedy.  Gate, fatal: fp32
+    at NEW_FAMILY_GATE_LAYERS encoder and decoder layers, the token-by-token
+    decode's last logits against ``decode_train``'s, within LM_GATE_ATOL.
+    The main run must launch the flash kernel once a decoder layer, and
+    decoder layers 0's and 1's self-attention, recorded in that run, must
+    agree with ``flash_attention_plain`` on their own q/k/v at
+    ATTN_TOL["bf16"].  Readings, not gated: the prompt decode's last logits
+    against ``prefill_fn``'s, and a bf16 plain build's ``prefill_fn``
+    logits (same weights, same batch) against the kernel build's and
+    against the prompt decode's; then in fp32 at full depth, the prompt
+    decode's, a plain build's and the kernel build's on frames scaled by
+    1 + 2^-20 against the kernel build's ``prefill_fn``.  Returns the main
+    run's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch import prng
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, lm, transformer
+    from repro_torch.models.params import tree_leaves
+
+    tag, t_phase = "[encdec]", time.perf_counter()
+    free_card(dev, tag)
+    cfg = (configs.get_smoke if smoke else configs.get)("whisper_medium")
+    n, prompt, new = run
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n, prompt)).astype(
+        np.int32)).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (n, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(dev)
+
+    layers = min(NEW_FAMILY_GATE_LAYERS, cfg.n_layers)
+    gcfg = dataclasses.replace(cfg, n_layers=layers, encoder_layers=layers,
+                               dtype="float32")
+    gapi = lm.build(gcfg, device=dev)
+    gv = gapi.init(prng.PRNGKey(LM_INIT_SEED))
+    (full, (_, ck, cv)), launches = path_launches(
+        ("flash_attention",), lambda: gapi.prefill_fn(
+            gv, {"tokens": toks[:2], "frames": frames[:2]}))
+    lg = encdec_prompt_decode(gapi, gv, gcfg, toks[:2], (ck, cv),
+                              torch.float32, prompt, dev)
+    err = float((lg[:, 0] - full[:, -1]).abs().max())
+    print(f"{tag} gate: fp32, {layers} + {layers} layers, 2 x {prompt} "
+          f"tokens over {cfg.encoder_seq} frames: the token-by-token decode's "
+          f"last logits against decode_train's: max_abs_err={err:.3e} (limit "
+          f"{LM_GATE_ATOL}); decode_train launched flash_attention "
+          f"{launches['flash_attention']} times", flush=True)
+    if not err <= LM_GATE_ATOL or launches["flash_attention"] != layers:
+        raise AssertionError(f"{tag} gate failed")
+    del gv, full, ck, cv, lg
+    free_card(dev, tag)
+
+    recording, seen = attention_recorder()
+    api = lm.build(cfg, device=dev, attention=recording)
+    dtype = transformer.compute_dtype(cfg)
+    values, init_ms = host_ms(lambda: api.init(prng.PRNGKey(LM_INIT_SEED),
+                                               dtype=dtype), dev)
+    n_par = sum(v.numel() for v in tree_leaves(values))
+    batch = {"tokens": toks, "frames": frames.to(dtype)}
+    ops.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    (logits, (_, ck, cv)), pre_ms = host_ms(lambda: api.prefill_fn(values,
+                                                                   batch), dev)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} non-finite prefill logits")
+    cache = encdec.init_cache(cfg, n, prompt + new, dtype, dev)._replace(
+        cross_k=ck, cross_v=cv)
+    del ck, cv
+
+    def step_fn(tok, s):
+        nonlocal cache
+        logits, cache = api.decode_fn(values, cache, tok, s)
+        return logits
+
+    # the prompt, token by token from position 0 (teacher forced)
+    prompt_ms = []
+    for s in range(prompt):
+        lg, ms = host_ms(lambda: step_fn(toks[:, s:s + 1], s), dev)
+        prompt_ms.append(ms)
+    last = lg[:, 0, :cfg.vocab]
+    gen, dec_ms = generate_greedy(lambda tok, s: step_fn(tok, prompt + s),
+                                  lg[:, 0], new, dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    n_launch = ops.launch_counts()["flash_attention"]
+    new_family_readings(tag, cfg, n_par, init_ms, pre_ms, dec_ms, gen, wall,
+                        n_launch, dev)
+    if n_launch != cfg.n_layers:
+        raise AssertionError(f"{tag} {n_launch} flash launches, want "
+                             f"{cfg.n_layers} (one a decoder layer)")
+    check_recorded(tag, seen, min(2, cfg.n_layers),
+                   "decode_train self-attention")
+    del seen, cache
+
+    # the prompt decode against prefill_fn, and a plain build's prefill_fn
+    plain = lm.build(cfg, device=dev, attention=FA.flash_attention_plain)
+    plogits, _ = plain.prefill_fn(values, batch)
+    kern, plogits = logits[..., :cfg.vocab], plogits[..., :cfg.vocab]
+    errs = [float((a - b).abs().max()) for a, b in (
+        (last, kern[:, -1]), (last, plogits[:, -1]), (kern, plogits),
+        (kern[:, -1], plogits[:, -1]))]
+    print(f"{tag} the prompt's {prompt} decode steps: median "
+          f"{float(np.median(prompt_ms)):.2f} ms a step.  Logits in bf16, "
+          f"not gated (largest magnitude {float(kern.abs().max()):.1f}): "
+          f"the prompt decode's last against prefill_fn's last max_abs_err="
+          f"{errs[0]:.3e}, against the plain build's {errs[1]:.3e}; the "
+          f"plain build's prefill_fn against the kernel build's, all "
+          f"{prompt} positions {errs[2]:.3e}, the last {errs[3]:.3e}",
+          flush=True)
+    del values, logits, plogits, kern
+
+    # the same at full depth in fp32, without bf16's rounding: the prompt
+    # decode, a plain build, and frames scaled by 1 + 2^-20, each against
+    # the kernel build's prefill_fn (how far the model carries a rounding)
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    fapi = lm.build(fcfg, device=dev)
+    fv = fapi.init(prng.PRNGKey(LM_INIT_SEED))
+    V = cfg.vocab
+    flogits, (_, ck, cv) = fapi.prefill_fn(fv, {"tokens": toks,
+                                                "frames": frames})
+    lg = encdec_prompt_decode(fapi, fv, fcfg, toks, (ck, cv), torch.float32,
+                              prompt, dev)
+    fplain = lm.build(fcfg, device=dev, attention=FA.flash_attention_plain)
+    others = (lg[:, 0], fplain.prefill_fn(fv, {"tokens": toks,
+                                               "frames": frames})[0][:, -1],
+              fapi.prefill_fn(fv, {"tokens": toks, "frames": frames * (
+                  1 + 2.0 ** -20)})[0][:, -1])
+    errs = [float((o[..., :V] - flogits[:, -1, :V]).abs().max())
+            for o in others]
+    print(f"{tag} fp32, {cfg.encoder_layers} + {cfg.n_layers} layers, "
+          f"{n} x {prompt} tokens, not gated (largest logit magnitude "
+          f"{float(flogits[..., :V].abs().max()):.1f}): against prefill_fn's "
+          f"last logits, the prompt decode's max_abs_err={errs[0]:.3e}, the "
+          f"plain build's {errs[1]:.3e}, prefill_fn's on the frames x "
+          f"(1 + 2^-20) {errs[2]:.3e}", flush=True)
+    del fv, flogits, ck, cv, lg, others
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return n_launch
+
+
 def attention_bounds(dtype, flop, pairs, softcap):
     """The bf16 settings' second bound: the special-function units, one
     exp2 a pair and, with the softcap, tanhf's exp2 and reciprocal."""
@@ -2482,74 +2846,110 @@ def check_volume_render_ragged(dev):
                                  "version at a ragged shape")
 
 
-def run_attention(cfg, seq, dev, reps=3):
+def run_attention(cfg, seq, dev, wide=False, reps=3):
     """Flash attention at ``cfg``'s attention widths on one sequence of
-    ``seq`` tokens: the local layer, the global layer, the global layer
-    without softcap (the library's case) in fp32, the local layer and the
-    global layer without softcap in bf16 (the latter against SDPA in bf16
-    too).  Returns the kernel's launches over the settings (the JSON row
-    is the [lm] phase's, at the main path's shapes)."""
+    ``seq`` tokens.  For gemma2-27b: the local layer, the global layer and
+    the global layer without softcap (the library's case) in fp32, the
+    local layer and the global layer without softcap in bf16, then the
+    ragged shapes at head_dim 64.  For the head_dim-256 config (``wide``:
+    gemma3-12b, no softcap): the local and the global layer in fp32 and in
+    bf16, then the ragged shapes at its head_dim and heads.  Each setting
+    is held to the plain version at ATTN_TOL and printed with its bound
+    and, where it has no softcap (SDPA has none), SDPA's time (a window
+    mask where the window is shorter than the sequence).  Returns the
+    kernel's launches over the settings (the JSON row is the [lm]
+    phase's, at the main path's shapes)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
     B, S, H, KV, Dh = 1, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f32, b16 = torch.float32, torch.bfloat16
+    win, cap = cfg.window, cfg.attn_softcap
+    if wide:
+        settings = [(f"head_dim {Dh} {kind} {name}", dt, w, cap)
+                    for name, dt in (("fp32", f32), ("bf16", b16))
+                    for kind, w in (("local", win), ("global", 0))]
+    else:
+        settings = [("local", f32, win, cap), ("global", f32, 0, cap),
+                    ("global no softcap", f32, 0, 0.0),
+                    ("local bf16", b16, win, cap),
+                    ("global no softcap bf16", b16, 0, 0.0)]
     rng = np.random.default_rng(SEED)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-               .to(dev) for shape in ((B, S, H, Dh), (B, S, KV, Dh),
-                                      (B, S, KV, Dh)))
-    bf16 = tuple(t.to(torch.bfloat16) for t in (q, k, v))
-    settings = [("local", (q, k, v), cfg.window, cfg.attn_softcap),
-                ("global", (q, k, v), 0, cfg.attn_softcap),
-                ("global no softcap", (q, k, v), 0, 0.0),
-                ("local bf16", bf16, cfg.window, cfg.attn_softcap),
-                ("global no softcap bf16", bf16, 0, 0.0)]
+    x32 = tuple(torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+                .to(dev) for sh in ((B, S, H, Dh), (B, S, KV, Dh),
+                                    (B, S, KV, Dh)))
+    xs = {torch.float32: x32,
+          torch.bfloat16: tuple(t.to(torch.bfloat16) for t in x32)}
     outs, launches = path_launches(("flash_attention",), lambda: [
-        FA.flash_attention(*x, window=w, softcap=c) for _, x, w, c in settings])
-    for (tag, x, w, c), out in zip(settings, outs):
-        dt = x[0].dtype
+        FA.flash_attention(*xs[dt], window=w, softcap=c)
+        for _, dt, w, c in settings])
+    for (tag, dt, w, c), out in zip(settings, outs):
+        x = xs[dt]
         rtol, atol, rel = ATTN_TOL["bf16" if dt == torch.bfloat16 else "fp32"]
         _, ms = timed(lambda: FA.flash_attention(*x, window=w, softcap=c), dev,
                       reps)
         want, plain_ms = timed(lambda: FA.flash_attention_plain(*x, w, c),
                                dev, 1)
+        lib_ms = None
+        if not c:
+            lib, lib_ms = sdpa_ms(x, w, dev, reps)
+            print(f"[attention] {tag}: scaled_dot_product_attention "
+                  f"({'a window mask' if w and w < S else 'causal'}) "
+                  f"{lib_ms:.3f} ms, max_abs_err against the kernel "
+                  f"{max_err(lib, out)[0]:.3e}", flush=True)
+            del lib
         pairs = B * H * sum(min(i + 1, w or S) for i in range(S))
         flop = 4 * Dh * pairs
         nbytes = x[0].element_size() * 2 * (x[0].numel() + x[1].numel())
-        lib_ms = None
-        if not c and not w:
-            qt, kt, vt = (t.transpose(1, 2) for t in x)
-            lib, lib_ms = timed(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), dev, reps)
-            print(f"[attention] {tag}: scaled_dot_product_attention "
-                  f"{lib_ms:.3f} ms, max_abs_err against the kernel "
-                  f"{max_err(lib.transpose(1, 2), out)[0]:.3e}", flush=True)
-            del lib
-        print(f"[attention] {tag} (window {w}, softcap {c}, {dt}): "
-              f"{pairs} causal pairs, {flop / 1e9:.1f} GFLOP"
-              f"{attention_bounds(dt, flop, pairs, c)}", flush=True)
+        print(f"[attention] {tag} (S {S}, H {H} / KV {KV}, head_dim {Dh}, "
+              f"window {w}, softcap {c}, {dt}): {pairs} causal pairs, "
+              f"{flop / 1e9:.1f} GFLOP{attention_bounds(dt, flop, pairs, c)}",
+              flush=True)
         peak = PEAK_BF16_TC if dt == torch.bfloat16 else PEAK_FP32
         check(f"flash_attention {tag}", out, want, ms, plain_ms, flop, nbytes,
               library_ms=lib_ms, rtol=rtol, atol=atol, peak=peak, rel=rel)
         del want
-    check_attention_ragged(dev)
+    del outs
+    if wide:
+        check_attention_ragged(dev, Dh, ((H, KV), (8, 1)))
+    else:
+        check_attention_ragged(dev)
     return launches
 
 
-def check_attention_ragged(dev):
+def sdpa_ms(x, w, dev, reps):
+    """(output (B, S, H, Dh), ms) of ``scaled_dot_product_attention`` on
+    q, k, v ``x`` (GQA), causal, with a sliding-window mask where ``w`` is
+    shorter than the sequence; timed here, used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    S = x[0].shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in x)
+    mask = None
+    if w and w < S:
+        i = torch.arange(S, device=dev)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+    out, ms = timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True),
+        dev, reps)
+    return out.transpose(1, 2), ms
+
+
+def check_attention_ragged(dev, Dh=64, heads=((8, 8), (8, 1))):
     """Flash attention at shapes the attention phase does not give it:
-    RAGGED_SEQ tokens (a multiple of neither query tile), head_dim 64,
-    H / KV = 1 and 8, global and with a window that starts mid-tile and the
-    softcap, in both dtypes, against the plain version."""
+    RAGGED_SEQ tokens (a multiple of neither query tile), head_dim ``Dh``,
+    the (H, KV) of ``heads``, global and with a window that starts
+    mid-tile and the softcap, in both dtypes, against the plain version."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
 
     rng = np.random.default_rng(SEED)
-    for H, KV in ((8, 8), (8, 1)):
-        shapes = ((2, RAGGED_SEQ, H, 64), (2, RAGGED_SEQ, KV, 64),
-                  (2, RAGGED_SEQ, KV, 64))
+    for H, KV in heads:
+        shapes = ((2, RAGGED_SEQ, H, Dh), (2, RAGGED_SEQ, KV, Dh),
+                  (2, RAGGED_SEQ, KV, Dh))
         x32 = [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
                .to(dev) for sh in shapes]
         for x in (x32, [t.to(torch.bfloat16) for t in x32]):
@@ -2562,7 +2962,7 @@ def check_attention_ragged(dev):
                 r = rel_norm_err(got, want)
                 ok = ok and (rel is None or r <= rel)
                 print(f"[attention] ragged: S {RAGGED_SEQ}, H {H}, KV {KV}, "
-                      f"head_dim 64, {dt}, window {w}, softcap {c}: "
+                      f"head_dim {Dh}, {dt}, window {w}, softcap {c}: "
                       f"max_abs_err={err:.3e} rel_norm_err={r:.3e}",
                       flush=True)
                 if not ok:
@@ -2570,13 +2970,16 @@ def check_attention_ragged(dev):
                                          "plain version at a ragged shape")
 
 
-def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN, lm_waves=LM_WAVES,
-        lm_max_seq=LM_MAX_SEQ, family_kw=None):
-    """Phases 2-11 on ``dev`` at ``bundle``, image size ``hw``, the LM config
-    ``attn`` (its attention widths for phase 5, ``seq`` tokens; the whole
-    model for ``[lm]``, on ``lm_waves``), training ``train_kw``, then the
-    ``[moe]`` and ``[ssm]`` phases (``run_families(**family_kw)``); returns
-    the kernel rows of the JSON line."""
+def run(dev, bundle, hw, attn, seq, wide, wide_seq, reps=3, train_kw=TRAIN,
+        lm_waves=LM_WAVES, lm_max_seq=LM_MAX_SEQ, family_kw=None,
+        new_kw=None):
+    """Phases 2-13 on ``dev`` at ``bundle``, image size ``hw``, the LM
+    configs ``attn`` and ``wide`` (their attention widths for phase 5, over
+    ``seq`` and ``wide_seq`` tokens; the whole models for ``[lm]``, on
+    ``lm_waves``), training ``train_kw``, then the ``[moe]`` and ``[ssm]``
+    phases (``run_families(**family_kw)``), ``[vlm]`` and ``[encdec]``
+    (``run_vlm`` / ``run_encdec(dev, **new_kw)``); returns the kernel rows
+    of the JSON line."""
     from repro_torch import params
     from repro_torch.core import scene
 
@@ -2587,16 +2990,26 @@ def run(dev, bundle, hw, attn, seq, reps=3, train_kw=TRAIN, lm_waves=LM_WAVES,
     rows, launches = check_kernels(field, bundle, cam, dev, reps)
     frame_launches, ref = run_frames(field, bundle, cam, dev)
     vr_row, vr_launches = run_decoupled(field, bundle, cam, ref, dev, reps)
-    run_attention(attn, seq, dev, reps)
+    run_attention(attn, seq, dev, reps=reps)
+    run_attention(wide, wide_seq, dev, wide=True, reps=reps)
     field_t, scene_t = run_train(bundle, cam, dev, train_kw)
     run_reuse(field_t, scene_t, bundle, dev, hw)
     run_serve(field_t, scene_t, field, bundle, dev, hw)
     del field, field_t, scene_t
-    fa_row, fa_launches = run_lm(attn, dev, lm_waves, lm_max_seq, reps)
-    run_families(dev, reps=reps, **(family_kw or {}))
+    fa_row, fa_launches = run_lm(attn, dev, lm_waves, lm_max_seq)
+    lm_launches = {attn.name: fa_launches}
+    _, lm_launches[wide.name] = run_lm(
+        wide, dev, lm_waves, lm_max_seq,
+        gate_layers=min(WIDE_GATE_LAYERS, wide.n_layers), json_row=False,
+        extras=False)
+    lm_launches.update(run_families(dev, **(family_kw or {})))
+    lm_launches["paligemma-3b"] = run_vlm(dev, **(new_kw or {}))
+    lm_launches["whisper-medium"] = run_encdec(dev, **(new_kw or {}))
+    print(f"[lm] flash_attention launches in the LM main runs: "
+          f"{lm_launches}", flush=True)
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches,
-                    flash_attention=fa_launches)
+                    flash_attention=sum(lm_launches.values()))
     for r in rows:
         r["launches"] = launches[r["name"]]
     return rows
@@ -2617,6 +3030,17 @@ def ptxas_lines(log):
     return out
 
 
+def template_args(fn: str, kernel: str) -> str:
+    """The integer template arguments of a mangled kernel name, as
+    "<a, b>" ("" for a kernel that is no template):
+    ``..._kernelILi256EEEv...`` -> "<256>"."""
+    import re
+    m = re.match(r"I((?:Li-?\d+E)+)E", fn.split(kernel, 1)[1])
+    if m is None:
+        return ""
+    return "<" + ", ".join(re.findall(r"Li(-?\d+)E", m.group(1))) + ">"
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2626,7 +3050,7 @@ def main() -> int:
         print("chip_smoke: run from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import gemma2_27b, ingp_asdr
+    from repro_torch.configs import gemma2_27b, gemma3_12b, ingp_asdr
     from repro_torch.kernels import _build
 
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -2642,15 +3066,20 @@ def main() -> int:
             kernel = next((k for k in TILE_KERNELS if k in fn), None)
             if kernel is None:
                 continue
+            label = kernel + template_args(fn, kernel)
             if line.startswith("Used "):
-                registers[kernel] = int(line.split()[1])
+                registers[label] = int(line.split()[1])
             if "stack frame" in line:
                 if not line.startswith("0 bytes stack frame, 0 bytes spill "
                                        "stores, 0 bytes spill loads"):
                     raise AssertionError(f"{fn}: ptxas reports {line}")
                 checked.add(kernel)
+                checked.add(label)
     missing = [k for k, src in TILE_KERNELS.items()
                if src in built and k not in checked]
+    missing += [k + a for k, args in TILE_INSTANCES.items()
+                if TILE_KERNELS[k] in built for a in args
+                if k + a not in checked]
     if missing:
         raise AssertionError(f"ptxas reported nothing for {missing}")
     print(f"[build] 0-byte stacks, no spills; registers {registers}",
@@ -2658,8 +3087,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     bundle = ingp_asdr.CONFIG
-    check_smem(bundle, gemma2_27b.CONFIG)
-    rows = run(dev, bundle, bundle.image_hw, gemma2_27b.CONFIG, ATTN_SEQ)
+    check_smem(bundle, gemma2_27b.CONFIG, gemma3_12b.CONFIG)
+    rows = run(dev, bundle, bundle.image_hw, gemma2_27b.CONFIG, ATTN_SEQ,
+               gemma3_12b.CONFIG, WIDE_SEQ)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -15,14 +15,25 @@
 // double-buffered, so tile k + 1 loads while tile k is computed (one
 // barrier a tile: tile k has landed and the other buffer is free).
 //
+// Each kernel is a template on a compile-time bound of the head dim, kDh:
+// 128 takes Dh up to 128, 256 takes Dh in (128, 256].  The two bounds
+// have their own tiles (bf16_qb, bf16_kb, f32_min_ctas, ...); at 256 one warp's O
+// accumulator alone is 128 fp32 registers of the 255 a thread can hold.
+//
 // bf16 (flash_attention_bf16_kernel), FA2-style: each warp owns 16 query
-// rows, a CTA kBf16Warps of them (8: 128 rows, one CTA an SM at 234
-// registers; 4 warps at two CTAs an SM timed within noise of it, at
-// three CTAs they spill).
-// Q.K^T is mma.sync m16n8k16 bf16 -> fp32 with Q's fragments held in
-// registers (Q's tile is staged in the second K/V buffer, which it leaves
-// before that buffer first fills); K tiles come in by ldmatrix, V by
-// ldmatrix.trans, each step's fragments loading while the last one
+// rows.  At kDh 128 a CTA holds kBf16Warps of them (8: 128 rows, one CTA
+// an SM at 235 registers; 4 warps at two CTAs an SM timed within noise of
+// it, at three CTAs they spill) and Q's fragments stay in registers (Q's
+// tile is staged in the second K/V buffer, which it leaves before that
+// buffer first fills).  At kDh 256 a CTA holds kBf16WideWarps (4: 64
+// rows) over tiles of kBf16WideKB keys (32), and Q stays in shared memory
+// of its own, its fragments loaded by ldmatrix a 16-dim step at a time
+// beside K's: 128 registers of O, 16 of S and two steps of Q and K
+// fragments fit without spills, where Q's 64 fragment registers, S at 64
+// keys and V's fragments would not; 101,376 B of shared memory, two CTAs
+// an SM (64 keys double-buffered, 270 KB, would not fit one).
+// Q.K^T is mma.sync m16n8k16 bf16 -> fp32; K tiles come in by ldmatrix, V
+// by ldmatrix.trans, each step's fragments loading while the last one
 // multiplies.  The online softmax runs on the fp32 accumulator fragments
 // (a quad of lanes shares a row: two shuffles for its max, which is taken
 // before the log2 scale, folded into the exponent's multiply-add; the
@@ -40,10 +51,11 @@
 // (no TF32), as a register-tiled outer product: a CTA of 128 threads takes
 // 64 query rows against kF32KB-key tiles (32: two CTAs an SM; 16 and 64
 // measured slower); each thread holds a 4 x 4 tile of S = Q.K^T (rows
-// ty + 16 r, keys tx + 8 c) and a 4 x 16 tile of O (rows ty + 16 r, float4
-// slices tx + 8 c of Dh), so each float4 read from shared memory feeds
-// several multiply-adds.  P goes through a small shared tile read back by
-// the warp that wrote it.  Bound: operations (4 * Dh FLOP per unmasked
+// ty + 16 r, keys tx + 8 c) and a 4 x kDh / 8 tile of O (rows ty + 16 r,
+// float4 slices tx + 8 c of Dh), so each float4 read from shared memory
+// feeds several multiply-adds.  At kDh 256 the tiles are the same, O is
+// 128 registers, and the 209,920 B of shared memory hold one CTA an SM.
+// P goes through a small shared tile read back by the warp that wrote it.  Bound: operations (4 * Dh FLOP per unmasked
 // pair at 67 TFLOP/s).
 //
 // Built without --fmad=false: the kernel is held to its plain version by
@@ -57,21 +69,42 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kMaxDh = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// head dims up to 128
 constexpr int kBf16Warps = 8;                // warps (16 query rows each)
 constexpr int kBf16MinCtas = 1;              // CTAs an SM it is built for
-constexpr int kBf16Threads = 32 * kBf16Warps;
-constexpr int kBf16QB = 16 * kBf16Warps;     // query rows per CTA
 constexpr int kBf16KB = 64;                  // keys per tile
 
-constexpr int kF32Threads = 128;
 constexpr int kF32MinCtas = 2;               // CTAs an SM it is built for
-constexpr int kF32QB = 64;                   // query rows per CTA
 constexpr int kF32KB = 32;                   // keys per tile
-constexpr int kF32KC = kF32KB / 8;           // keys of a thread's S tile
-constexpr int kF32LdP = kF32KB + 8;          // row of the P tile (floats)
+
+// head dims in (128, 256]
+constexpr int kBf16WideWarps = 4;
+constexpr int kBf16WideMinCtas = 2;
+constexpr int kBf16WideKB = 32;
+
+constexpr int kF32WideMinCtas = 1;          // fp32 keeps its tiles
+
+constexpr int kF32Threads = 128;
+constexpr int kF32QB = 64;                   // query rows per CTA
+
+// The tiles of each head-dim bound (kDh 128 or 256).
+__host__ __device__ constexpr int bf16_threads(int kDh) {
+  return 32 * (kDh > 128 ? kBf16WideWarps : kBf16Warps);
+}
+__host__ __device__ constexpr int bf16_qb(int kDh) {
+  return 16 * (kDh > 128 ? kBf16WideWarps : kBf16Warps);
+}
+__host__ __device__ constexpr int bf16_kb(int kDh) {
+  return kDh > 128 ? kBf16WideKB : kBf16KB;
+}
+__host__ __device__ constexpr int bf16_min_ctas(int kDh) {
+  return kDh > 128 ? kBf16WideMinCtas : kBf16MinCtas;
+}
+__host__ __device__ constexpr int f32_min_ctas(int kDh) {
+  return kDh > 128 ? kF32WideMinCtas : kF32MinCtas;
+}
 
 // Rows of Q, K and V in shared memory are padded by 16 B: an odd number of
 // 16-B units per row puts ldmatrix's eight rows (bf16) and eight lanes'
@@ -80,14 +113,18 @@ __host__ __device__ inline int row_elems(int Dh, int elem_bytes) {
   return Dh + 16 / elem_bytes;
 }
 
-// Two buffers of a K tile and a V tile; Q's tile is staged in the second
-// (it is read into registers before that buffer first fills).
+// Two buffers of a K tile and a V tile; at Dh <= 128 Q's tile is staged
+// in the second (it is read into registers before that buffer first
+// fills), past 128 it has its own.
 __host__ inline long long bf16_smem(int Dh) {
-  return 2LL * row_elems(Dh, 2) * 4 * kBf16KB;
+  const int kb = bf16_kb(Dh);
+  return 2LL * row_elems(Dh, 2) * (4 * kb + (Dh > 128 ? bf16_qb(Dh) : 0));
 }
 
+// Q's tile, two buffers of a K and a V tile, and the P tile.
 __host__ inline long long f32_smem(int Dh) {
-  return 4LL * (row_elems(Dh, 4) * (kF32QB + 4 * kF32KB) + kF32QB * kF32LdP);
+  return 4LL * (row_elems(Dh, 4) * (kF32QB + 4 * kF32KB) +
+                kF32QB * (kF32KB + 8));
 }
 
 // The key tiles with an unmasked pair for query rows [q0, q0 + qb): their
@@ -121,12 +158,12 @@ __device__ __forceinline__ void cp_wait() {
 
 // kRows rows from row0 of a (., Dh) matrix with row stride gstride into
 // shared rows of ld elements; rows at or past S are zero-filled.
-template <typename T, int kThreads, int kRows>
+template <typename T, int kThreads, int kRows, int kDh>
 __device__ __forceinline__ void load_rows(T* s, int ld, const T* g,
                                           long long gstride, int row0, int S,
                                           int Dh) {
   constexpr int kPer = 16 / sizeof(T);           // elements per 16 B
-  constexpr int kSlots = kMaxDh / kPer;          // 16 B slots of a row
+  constexpr int kSlots = kDh / kPer;             // 16 B slots of a row
   constexpr int kStep = kThreads / kSlots;       // rows a pass
   static_assert(kRows % kStep == 0, "whole passes");
   const int c = threadIdx.x % kSlots, r = threadIdx.x / kSlots;
@@ -178,19 +215,17 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // ---- bf16 on the tensor cores -------------------------------------------
-constexpr int kVP = 4;   // 16-dim pairs of 8-dim output tiles a P.V step
-
-// o += P . V for one warp's 16 rows and a tile of kBf16KB keys, P the
-// softmax numerators s (fp32, rounded to bf16 here).  Steps of 16 keys by
-// kVP * 16 dims, kHalves steps per 16 keys (Dh <= kHalves * kVP * 16);
-// the next step's V fragments (ldmatrix.trans) load while this one
-// multiplies.  bv[0] holds the first step's, loaded by the caller.
-template <int kHalves>
-__device__ __forceinline__ void pv_bf16(float (&o)[kMaxDh / 8][4],
-                                        const float (&s)[kBf16KB / 8][4],
+// o += P . V for one warp's 16 rows and a tile of kKB keys, P the softmax
+// numerators s (fp32, rounded to bf16 here).  Steps of 16 keys by kVP * 16
+// dims, kHalves steps per 16 keys (Dh <= kHalves * kVP * 16); the next
+// step's V fragments (ldmatrix.trans) load while this one multiplies.
+// bv[0] holds the first step's, loaded by the caller.
+template <int kHalves, int kDh, int kKB, int kVP>
+__device__ __forceinline__ void pv_bf16(float (&o)[kDh / 8][4],
+                                        const float (&s)[kKB / 8][4],
                                         uint32_t (&bv)[2][kVP][4],
                                         const bf16* va, int ld, int nk) {
-  constexpr int kSteps = kBf16KB / 16 * kHalves;
+  constexpr int kSteps = kKB / 16 * kHalves;
   uint32_t pa[4];
 #pragma unroll
   for (int st = 0; st < kSteps; ++st) {
@@ -219,20 +254,29 @@ __device__ __forceinline__ void pv_bf16(float (&o)[kMaxDh / 8][4],
   }
 }
 
-// q/out (B, S, H, Dh), k/v (B, S, KV, Dh), contiguous.  Grid: (query
-// tiles, B * H); the heaviest (last) query tiles start first.
-__global__ void __launch_bounds__(kBf16Threads, kBf16MinCtas)
+// q/out (B, S, H, Dh), k/v (B, S, KV, Dh), contiguous, Dh <= kDh.  Grid:
+// (query tiles, B * H); the heaviest (last) query tiles start first.
+template <int kDh>
+__global__ void __launch_bounds__(bf16_threads(kDh), bf16_min_ctas(kDh))
 flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H, int KV,
     int Dh, int window, float softcap, float scale) {
-  constexpr int kQB = kBf16QB, kKB = kBf16KB, kNT = kKB / 8;
-  static_assert(kQB <= 2 * kKB, "Q's tile fits a K/V buffer");
+  constexpr int kThreads = bf16_threads(kDh), kQB = bf16_qb(kDh);
+  constexpr int kKB = bf16_kb(kDh), kNT = kKB / 8;
+  // Q's fragments held in registers for the whole CTA up to 128 dims (else
+  // read from shared memory each step); 16-dim pairs of 8-dim output tiles
+  // a P.V step
+  constexpr bool kQInRegs = kDh <= 128;
+  constexpr int kVP = kQInRegs ? 4 : 2;
+  static_assert(!kQInRegs || kQB <= 2 * kKB, "Q's tile fits a K/V buffer");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = row_elems(Dh, 2);
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // buffer b: K at sk + b *
   bf16* sv = sk + kKB * ld;                      // 2 * kKB * ld, V after it
-  bf16* sq = sk + 2 * kKB * ld;                  // buffer 1, before its fill
+  // Q: in buffer 1 before its fill where it goes to registers, else after
+  // both buffers
+  bf16* sq = sk + (kQInRegs ? 2 : 4) * kKB * ld;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kQB;
@@ -247,18 +291,19 @@ flash_attention_bf16_kernel(
 
   const KeyRange keys = key_range(q0, S, window, kQB, kKB);
   const int k_begin = keys.begin, k_end = keys.end;
-  load_rows<bf16, kBf16Threads, kQB>(sq, ld, qb, qs, q0, S, Dh);
-  load_rows<bf16, kBf16Threads, kKB>(sk, ld, kb, ks, k_begin, S, Dh);
-  load_rows<bf16, kBf16Threads, kKB>(sv, ld, vb, ks, k_begin, S, Dh);
+  load_rows<bf16, kThreads, kQB, kDh>(sq, ld, qb, qs, q0, S, Dh);
+  load_rows<bf16, kThreads, kKB, kDh>(sk, ld, kb, ks, k_begin, S, Dh);
+  load_rows<bf16, kThreads, kKB, kDh>(sv, ld, vb, ks, k_begin, S, Dh);
   cp_commit();
 
   const int wq0 = q0 + 16 * warp;                // the warp's first row
   const int row0 = wq0 + g, row1 = row0 + 8;
   const float sl = scale * kLog2e, sc = softcap > 0.f ? scale / softcap : 0.f;
-  uint32_t qf[kMaxDh / 16][4];
-  float o[kMaxDh / 8][4];
+  // Q's fragments: every 16-dim step's, or two steps' loaded in turn
+  uint32_t qf[kQInRegs ? kDh / 16 : 2][4];
+  float o[kDh / 8][4];
 #pragma unroll
-  for (int i = 0; i < kMaxDh / 8; ++i)
+  for (int i = 0; i < kDh / 8; ++i)
     o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
@@ -267,19 +312,19 @@ flash_attention_bf16_kernel(
     // tile kt has landed, and every warp is done with the other buffer
     cp_wait<0>();
     __syncthreads();
-    if (kt == k_begin) {   // Q into registers, then its buffer is free
-#pragma unroll
-      for (int kk = 0; kk < kMaxDh / 16; ++kk)
+    if (kQInRegs && kt == k_begin) {      // Q into registers, then its
+#pragma unroll                             // buffer is free
+      for (int kk = 0; kk < kDh / 16; ++kk)
         if (kk < nk)
           ldsm_x4(qf[kk], sq + (16 * warp + mr + (mi & 1) * 8) * ld + kk * 16 +
                               (mi >> 1) * 8);
       __syncthreads();
     }
     if (kt + kKB < k_end) {
-      load_rows<bf16, kBf16Threads, kKB>(sk + (buf ^ 1) * 2 * kKB * ld, ld, kb,
-                                         ks, kt + kKB, S, Dh);
-      load_rows<bf16, kBf16Threads, kKB>(sv + (buf ^ 1) * 2 * kKB * ld, ld, vb,
-                                         ks, kt + kKB, S, Dh);
+      load_rows<bf16, kThreads, kKB, kDh>(sk + (buf ^ 1) * 2 * kKB * ld, ld,
+                                          kb, ks, kt + kKB, S, Dh);
+      load_rows<bf16, kThreads, kKB, kDh>(sv + (buf ^ 1) * 2 * kKB * ld, ld,
+                                          vb, ks, kt + kKB, S, Dh);
       cp_commit();
     }
     // a tile the masks empty for all of this warp's rows adds nothing
@@ -291,26 +336,30 @@ flash_attention_bf16_kernel(
       float s[kNT][4];
 #pragma unroll
       for (int i = 0; i < kNT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      // Q.K^T; the K fragments of dim step kk + 1 load while step kk
-      // multiplies
+      // Q.K^T; the K (and, from shared memory, Q) fragments of dim step
+      // kk + 1 load while step kk multiplies
       const bf16* ka = kt_s + (mr + (mi >> 1) * 8) * ld + (mi & 1) * 8;
+      const bf16* qa =
+          sq + (16 * warp + mr + (mi & 1) * 8) * ld + (mi >> 1) * 8;
       uint32_t bk[2][kNT / 2][4];
+      if (!kQInRegs) ldsm_x4(qf[0], qa);
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np)
         ldsm_x4(bk[0][np], ka + np * 16 * ld);
 #pragma unroll
-      for (int kk = 0; kk < kMaxDh / 16; ++kk) {
+      for (int kk = 0; kk < kDh / 16; ++kk) {
         if (kk < nk) {
           if (kk + 1 < nk) {
+            if (!kQInRegs) ldsm_x4(qf[(kk + 1) & 1], qa + (kk + 1) * 16);
 #pragma unroll
             for (int np = 0; np < kNT / 2; ++np)
               ldsm_x4(bk[(kk + 1) & 1][np], ka + np * 16 * ld + (kk + 1) * 16);
           }
+          const uint32_t(&af)[4] = qf[kQInRegs ? kk : kk & 1];
 #pragma unroll
           for (int np = 0; np < kNT / 2; ++np) {
-            mma_bf16(s[2 * np], qf[kk], bk[kk & 1][np][0], bk[kk & 1][np][1]);
-            mma_bf16(s[2 * np + 1], qf[kk], bk[kk & 1][np][2],
-                     bk[kk & 1][np][3]);
+            mma_bf16(s[2 * np], af, bk[kk & 1][np][0], bk[kk & 1][np][1]);
+            mma_bf16(s[2 * np + 1], af, bk[kk & 1][np][2], bk[kk & 1][np][3]);
           }
         }
       }
@@ -371,7 +420,7 @@ flash_attention_bf16_kernel(
         l0 *= a0;
         l1 *= a1;
 #pragma unroll
-        for (int i = 0; i < kMaxDh / 8; ++i) {
+        for (int i = 0; i < kDh / 8; ++i) {
           o[i][0] *= a0;
           o[i][1] *= a0;
           o[i][2] *= a1;
@@ -399,11 +448,11 @@ flash_attention_bf16_kernel(
         }
       l0 += ls[0][0];
       l1 += ls[0][1];
-      // P (bf16, in registers) . V
-      if (nk > kVP)
-        pv_bf16<kMaxDh / 16 / kVP>(o, s, bv, va, ld, nk);
+      // P (bf16, in registers) . V; past 128 dims always the full steps
+      if (kDh > 128 || nk > kVP)
+        pv_bf16<kDh / 16 / kVP, kDh, kKB, kVP>(o, s, bv, va, ld, nk);
       else
-        pv_bf16<1>(o, s, bv, va, ld, nk);
+        pv_bf16<1, kDh, kKB, kVP>(o, s, bv, va, ld, nk);
     }
   }
 
@@ -414,7 +463,7 @@ flash_attention_bf16_kernel(
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   bf16* ob = out + ((long long)b * S * H + h) * Dh + 2 * tig;
 #pragma unroll
-  for (int i = 0; i < kMaxDh / 8; ++i) {
+  for (int i = 0; i < kDh / 8; ++i) {
     if (i < Dh / 8) {
       if (row0 < S)
         *reinterpret_cast<uint32_t*>(ob + row0 * qs + i * 8) =
@@ -441,12 +490,16 @@ __device__ __forceinline__ void axpy4(float4& acc, float p, float4 v) {
   acc.w += p * v.w;
 }
 
-__global__ void __launch_bounds__(kF32Threads, kF32MinCtas)
+template <int kDh>
+__global__ void __launch_bounds__(kF32Threads, f32_min_ctas(kDh))
 flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int S, int H,
     int KV, int Dh, int window, float softcap, float scale) {
-  constexpr int kQB = kF32QB, kKB = kF32KB, kLdP = kF32LdP;
+  constexpr int kQB = kF32QB, kKB = kF32KB;
+  constexpr int kKC = kKB / 8;                   // keys of a thread's S tile
+  constexpr int kLdP = kKB + 8;                  // row of the P tile (floats)
+  constexpr int kOC = kDh / 32;                  // float4 slices of O a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = row_elems(Dh, 4);
   float* sq = reinterpret_cast<float*>(smem_raw);
@@ -466,20 +519,20 @@ flash_attention_f32_kernel(
 
   const KeyRange keys = key_range(q0, S, window, kQB, kKB);
   const int k_begin = keys.begin, k_end = keys.end;
-  load_rows<float, kF32Threads, kQB>(sq, ld, qb, qs, q0, S, Dh);
-  load_rows<float, kF32Threads, kKB>(sk, ld, kb, ks, k_begin, S, Dh);
-  load_rows<float, kF32Threads, kKB>(sv, ld, vb, ks, k_begin, S, Dh);
+  load_rows<float, kF32Threads, kQB, kDh>(sq, ld, qb, qs, q0, S, Dh);
+  load_rows<float, kF32Threads, kKB, kDh>(sk, ld, kb, ks, k_begin, S, Dh);
+  load_rows<float, kF32Threads, kKB, kDh>(sv, ld, vb, ks, k_begin, S, Dh);
   cp_commit();
 
   const float sc = softcap > 0.f ? scale / softcap : 0.f;
-  float4 o[4][4];
+  float4 o[4][kOC];
   float m[4], l[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < kOC; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
   int buf = 0;
@@ -488,33 +541,33 @@ flash_attention_f32_kernel(
     cp_wait<0>();
     __syncthreads();
     if (kt + kKB < k_end) {
-      load_rows<float, kF32Threads, kKB>(sk + (buf ^ 1) * kKB * ld, ld, kb,
-                                         ks, kt + kKB, S, Dh);
-      load_rows<float, kF32Threads, kKB>(sv + (buf ^ 1) * kKB * ld, ld, vb,
-                                         ks, kt + kKB, S, Dh);
+      load_rows<float, kF32Threads, kKB, kDh>(sk + (buf ^ 1) * kKB * ld, ld,
+                                              kb, ks, kt + kKB, S, Dh);
+      load_rows<float, kF32Threads, kKB, kDh>(sv + (buf ^ 1) * kKB * ld, ld,
+                                              vb, ks, kt + kKB, S, Dh);
       cp_commit();
     }
     const float* kt_s = sk + buf * kKB * ld;
     const float* vt_s = sv + buf * kKB * ld;
 
-    float s[4][kF32KC];
+    float s[4][kKC];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < kF32KC; ++c) s[r][c] = 0.f;
+      for (int c = 0; c < kKC; ++c) s[r][c] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < Dh; d += 4) {
-      float4 qa[4], kk[kF32KC];
+      float4 qa[4], kk[kKC];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         qa[r] = *reinterpret_cast<const float4*>(sq + (ty + 16 * r) * ld + d);
 #pragma unroll
-      for (int c = 0; c < kF32KC; ++c)
+      for (int c = 0; c < kKC; ++c)
         kk[c] = *reinterpret_cast<const float4*>(kt_s + (tx + 8 * c) * ld + d);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < kF32KC; ++c) fma4(s[r][c], qa[r], kk[c]);
+        for (int c = 0; c < kKC; ++c) fma4(s[r][c], qa[r], kk[c]);
     }
 
 #pragma unroll
@@ -522,7 +575,7 @@ flash_attention_f32_kernel(
       const int row = q0 + ty + 16 * r;
       float mt = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < kF32KC; ++c) {
+      for (int c = 0; c < kKC; ++c) {
         const int key = kt + tx + 8 * c;
         float x = softcap > 0.f ? softcap * tanhf(s[r][c] * sc)
                                 : s[r][c] * scale;
@@ -540,14 +593,14 @@ flash_attention_f32_kernel(
       m[r] = mn;
       l[r] *= alpha;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < kOC; ++c) {
         o[r][c].x *= alpha;
         o[r][c].y *= alpha;
         o[r][c].z *= alpha;
         o[r][c].w *= alpha;
       }
 #pragma unroll
-      for (int c = 0; c < kF32KC; ++c) {
+      for (int c = 0; c < kKC; ++c) {
         const float p = expf(s[r][c] - mu);
         l[r] += p;
         sp[(ty + 16 * r) * kLdP + tx + 8 * c] = p;
@@ -562,7 +615,7 @@ flash_attention_f32_kernel(
       for (int r = 0; r < 4; ++r)
         pr[r] = *reinterpret_cast<const float4*>(sp + (ty + 16 * r) * kLdP + j);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < kOC; ++c) {
         if (tx + 8 * c < d4) {
           const float* vr = vt_s + j * ld + 4 * (tx + 8 * c);
           const float4 v0 = *reinterpret_cast<const float4*>(vr);
@@ -592,7 +645,7 @@ flash_attention_f32_kernel(
     if (row < S) {
       float* orow = out + ((long long)b * S * H + h) * Dh + row * qs;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < kOC; ++c)
         if (tx + 8 * c < d4)
           *reinterpret_cast<float4*>(orow + 4 * (tx + 8 * c)) =
               make_float4(o[r][c].x * inv, o[r][c].y * inv, o[r][c].z * inv,
@@ -608,27 +661,49 @@ flash_attention_f32_kernel(
 // bytes, grid x, grid y.
 extern "C" void flash_attention_config(int is_bf16, int Dh, int B, int S, int H,
                                        long long* out) {
-  const int qb = is_bf16 ? kBf16QB : kF32QB;
+  const int qb = is_bf16 ? bf16_qb(Dh) : kF32QB;
   out[0] = qb;
-  out[1] = is_bf16 ? kBf16KB : kF32KB;
+  out[1] = is_bf16 ? bf16_kb(Dh) : kF32KB;
   out[2] = is_bf16 ? bf16_smem(Dh) : f32_smem(Dh);
   out[3] = (S + qb - 1) / qb;
   out[4] = (long long)B * H;
 }
 
-// The key tiles the CTA of query rows [q0, q0 + query rows) loads: out[0]
-// = first key of the first tile, out[1] = one past the last key.
-extern "C" void flash_attention_key_range(int is_bf16, int q0, int S,
+// The key tiles the CTA of query rows [q0, q0 + query rows) loads at head
+// dim Dh: out[0] = first key of the first tile, out[1] = one past the
+// last key.
+extern "C" void flash_attention_key_range(int is_bf16, int Dh, int q0, int S,
                                           int window, long long* out) {
-  const KeyRange r = is_bf16 ? key_range(q0, S, window, kBf16QB, kBf16KB)
-                             : key_range(q0, S, window, kF32QB, kF32KB);
+  const KeyRange r =
+      is_bf16 ? key_range(q0, S, window, bf16_qb(Dh), bf16_kb(Dh))
+              : key_range(q0, S, window, kF32QB, kF32KB);
   out[0] = r.begin;
   out[1] = r.end;
 }
 
-// Dh a multiple of 16 up to 128, H a multiple of KV, 16-byte aligned
-// pointers (the wrapper checks).  is_bf16 != 0: all four tensors bf16, else
-// fp32.  window 0 = global; softcap 0 = none.  Returns cudaGetLastError().
+namespace {
+// Set the kernel's shared memory, launch it on E-typed tensors.
+template <typename E>
+int launch(void (*kernel)(const E*, const E*, const E*, E*, int, int, int,
+                          int, int, float, float),
+           dim3 grid, int threads, int smem, cudaStream_t stream,
+           const void* q, const void* k, const void* v, void* out, int S,
+           int H, int KV, int Dh, int window, float softcap, float scale) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(out), S, H, KV, Dh, window,
+      softcap, scale);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+// Dh a multiple of 16 up to 256 (the instantiation for 128 up to 128, the
+// one for 256 past it), H a multiple of KV, 16-byte aligned pointers (the
+// wrapper checks).  is_bf16 != 0: all four tensors bf16, else fp32.
+// window 0 = global; softcap 0 = none.  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int Dh, int window,
@@ -639,27 +714,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   flash_attention_config(is_bf16, Dh, B, S, H, cfg);
   const dim3 grid((unsigned)cfg[3], (unsigned)cfg[4]);
   const int smem = (int)cfg[2];
-  cudaError_t err;
-  if (is_bf16) {
-    err = cudaFuncSetAttribute(flash_attention_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_bf16_kernel<<<grid, kBf16Threads, smem,
-                                  (cudaStream_t)stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, KV, Dh,
-        window, softcap, scale);
-  } else {
-    err = cudaFuncSetAttribute(flash_attention_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_f32_kernel<<<grid, kF32Threads, smem,
-                                 (cudaStream_t)stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), S, H, KV, Dh,
-        window, softcap, scale);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = Dh > 128;
+  if (is_bf16)
+    return wide ? launch(flash_attention_bf16_kernel<256>, grid,
+                         bf16_threads(256), smem, st, q, k, v, out, S, H, KV,
+                         Dh, window, softcap, scale)
+                : launch(flash_attention_bf16_kernel<128>, grid,
+                         bf16_threads(128), smem, st, q, k, v, out, S, H, KV,
+                         Dh, window, softcap, scale);
+  return wide ? launch(flash_attention_f32_kernel<256>, grid, kF32Threads,
+                       smem, st, q, k, v, out, S, H, KV, Dh, window, softcap,
+                       scale)
+              : launch(flash_attention_f32_kernel<128>, grid, kF32Threads,
+                       smem, st, q, k, v, out, S, H, KV, Dh, window, softcap,
+                       scale);
 }

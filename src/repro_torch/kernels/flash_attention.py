@@ -7,14 +7,19 @@ optional tanh ``softcap``, causal with an optional sliding ``window``
 (0 = global); fp32 math, the output in q's dtype (fp32 or bf16).
 
 The CUDA kernel (``csrc/flash_attention.cu``, built by ``_build.py`` with
-nvcc for sm_90a) has two instantiations.  bf16 inputs run FA2-style on the
-tensor cores: a warp owns 16 query rows, ``mma.sync`` m16n8k16 bf16 ->
-fp32 for Q.K^T and P.V, K and V by ``ldmatrix`` (V transposed), the online
-softmax on the fp32 accumulator fragments, and P rounded to bf16 in
-registers as the A operand of P.V.  fp32 inputs stay in full fp32 on the
-CUDA cores as a register-tiled outer product (4 x 4 of S and 4 x 16 of O
-per thread).  Both stream double-buffered K/V tiles by ``cp.async``, read
-KV head ``h // (H // KV)`` in place and skip key tiles the masks empty
+nvcc for sm_90a) takes a head_dim that is a multiple of 16 up to 256, in
+four instantiations: each dtype at a head-dim bound of 128 and of 256
+(``head_dim_bound``), each bound with its own tiles (``tiles``).  bf16
+inputs run FA2-style on the tensor cores: a warp owns 16 query rows,
+``mma.sync`` m16n8k16 bf16 -> fp32 for Q.K^T and P.V, K and V by
+``ldmatrix`` (V transposed), the online softmax on the fp32 accumulator
+fragments, and P rounded to bf16 in registers as the A operand of P.V;
+Q's fragments stay in registers up to 128 dims, past it they come from
+shared memory a 16-dim step at a time (64 query rows a CTA over 32-key
+tiles).  fp32 inputs stay in full fp32 on the CUDA cores as a
+register-tiled outer product (4 x 4 of S and 4 x Dh / 8 of O per thread).
+Both stream double-buffered K/V tiles by ``cp.async``, read KV head
+``h // (H // KV)`` in place and skip key tiles the masks empty
 (``key_tiles``).  Bound on the H100: operations, on the tensor cores for
 bf16 and on the fp32 pipes for fp32.
 
@@ -36,49 +41,64 @@ from . import _build
 
 NEG_INF = -1e30
 PLAIN_KEY_TILE = 128
-MAX_HEAD_DIM = 128
-# the kernel's tiles, by input dtype: query rows per CTA, keys per tile
+MAX_HEAD_DIM = 256
+# the kernel's tiles up to 128 dims: query rows per CTA, keys per tile;
+# past 128 bf16 takes BF16_WIDE_TILES and fp32 keeps its own
 QUERY_TILE = {torch.bfloat16: 128, torch.float32: 64}
 KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
-F32_P_ROW = KEY_TILE[torch.float32] + 8     # floats of a row of the P tile
+BF16_WIDE_TILES = (64, 32)
 
 
-def grid(B: int, S: int, H: int, dtype) -> tuple:
+def head_dim_bound(Dh: int) -> int:
+    """The instantiation a head_dim runs on: 128 up to 128, 256 past it."""
+    return 128 if Dh <= 128 else 256
+
+
+def tiles(Dh: int, dtype) -> tuple:
+    """(query rows per CTA, keys per tile) at head_dim ``Dh``."""
+    if dtype == torch.bfloat16 and head_dim_bound(Dh) == 256:
+        return BF16_WIDE_TILES
+    return QUERY_TILE[dtype], KEY_TILE[dtype]
+
+
+def grid(B: int, S: int, H: int, Dh: int, dtype) -> tuple:
     """The launch grid: (query tiles, B * H)."""
-    return -(-S // QUERY_TILE[dtype]), B * H
+    return -(-S // tiles(Dh, dtype)[0]), B * H
 
 
-def key_tiles(q0: int, S: int, window: int, dtype) -> range:
+def key_tiles(q0: int, S: int, window: int, Dh: int, dtype) -> range:
     """The wrapper's reckoning of the first keys of the key tiles the CTA of
-    query rows [q0, q0 + QUERY_TILE) loads: from the tile holding key
-    q0 - window + 1 (0 without a window) up to the last key of its rows,
-    min(S, q0 + QUERY_TILE) - 1.  ``launched_key_tiles`` is the kernel's."""
-    kb = KEY_TILE[dtype]
+    query rows [q0, q0 + qb) loads (qb, kb = ``tiles(Dh, dtype)``): from the
+    tile holding key q0 - window + 1 (0 without a window) up to the last key
+    of its rows, min(S, q0 + qb) - 1.  ``launched_key_tiles`` is the
+    kernel's."""
+    qb, kb = tiles(Dh, dtype)
     begin = max(0, q0 - window + 1) // kb * kb if window > 0 else 0
-    return range(begin, min(S, q0 + QUERY_TILE[dtype]), kb)
+    return range(begin, min(S, q0 + qb), kb)
 
 
-def launched_key_tiles(q0: int, S: int, window: int, dtype) -> range:
+def launched_key_tiles(q0: int, S: int, window: int, Dh: int,
+                       dtype) -> range:
     """The key tiles the compiled kernels load for the CTA of query rows
-    [q0, q0 + QUERY_TILE), from the range function they use; builds the
-    library."""
+    [q0, q0 + qb), from the range function they use; builds the library."""
     fn = _build.library("flash_attention").flash_attention_key_range
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = None
     out = (ctypes.c_longlong * 2)()
-    fn(int(dtype == torch.bfloat16), q0, S, window, out)
-    return range(int(out[0]), int(out[1]), KEY_TILE[dtype])
+    fn(int(dtype == torch.bfloat16), Dh, q0, S, window, out)
+    return range(int(out[0]), int(out[1]), tiles(Dh, dtype)[1])
 
 
 def smem_bytes(Dh: int, dtype) -> int:
     """Dynamic shared memory of the kernel: two buffers each of a K and a V
-    tile, rows padded by 16 B; for bf16 Q's tile is staged in the second
-    buffer (read into registers before it first fills), for fp32 it has
-    its own, and the P tile."""
-    qb, kb = QUERY_TILE[dtype], KEY_TILE[dtype]
+    tile, rows padded by 16 B; for bf16 up to 128 dims Q's tile is staged in
+    the second buffer (read into registers before it first fills), past 128
+    it has its own; for fp32 Q has its own, and the P tile (rows of kb + 8
+    floats)."""
+    qb, kb = tiles(Dh, dtype)
     if dtype == torch.bfloat16:
-        return 2 * (Dh + 8) * 4 * kb
-    return 4 * ((Dh + 4) * (qb + 4 * kb) + qb * F32_P_ROW)
+        return 2 * (Dh + 8) * (4 * kb + (qb if Dh > 128 else 0))
+    return 4 * ((Dh + 4) * (qb + 4 * kb) + qb * (kb + 8))
 
 
 def launch_config(Dh: int, B: int, S: int, H: int, dtype) -> tuple:

@@ -9,7 +9,9 @@ where prefill attention launches the flash kernel.  As in the reference,
 ``--smoke`` is a ``store_true`` flag that defaults to True, so the CLI
 always builds the arch's ``SMOKE`` config, in float32, with weights from
 ``PRNGKey(0)``; ``chip_smoke.py`` drives the full-width gemma2-27b
-through the engine.
+through the engine.  The VLM and the encoder-decoder (paligemma-3b,
+whisper-medium) are refused with a ``ValueError`` before anything is
+built: the engine cannot serve them (``engine.require_servable``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 import repro_torch.configs as configs
 from repro_torch import prng
 from repro_torch.models import lm
-from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+from repro_torch.serve.engine import (Request, ServeConfig, ServingEngine,
+                                      require_servable)
 
 
 def main(argv=None):
@@ -39,6 +42,7 @@ def main(argv=None):
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     cfg = dataclasses.replace(cfg, dtype="float32")
+    require_servable(cfg)
     api = lm.build(cfg, remat_policy=None, device=args.device)
     values = api.init(prng.PRNGKey(0))
     eng = ServingEngine(api, values, ServeConfig(

@@ -1,11 +1,14 @@
-"""Model-zoo dispatch (``repro.models.lm``): one interface over the
-decoder families the port has: dense, MoE, SSM (Mamba-2) and hybrid.
+"""Model-zoo dispatch (``repro.models.lm``): one interface over every
+family of the configs: dense, MoE, SSM (Mamba-2), hybrid, the prefix VLM
+and the encoder-decoder.
 
 ``build(cfg)`` returns a ``ModelAPI`` with
   init(key, dtype=float32) -> values     (concrete params on the device)
   abstract() -> (values, axes)           (the same tree on the meta device)
   loss_fn(values, batch, key) -> scalar  (next-token CE with a z-loss)
   prefill_fn(values, batch, max_seq) -> (logits, caches)
+      (the encoder-decoder's: prefill_fn(values, batch) ->
+       (logits, (enc_out, cross_k, cross_v)), as the reference's)
   decode_fn(values, caches, token, pos) -> (logits, caches)
   decode_cache_specs(batch, seq) -> caches on the meta device
   decode_cache_axes(batch, seq) / input_specs(shape) / input_axes()
@@ -15,17 +18,22 @@ prefill self-attention goes through ``kernels/ops.flash_attention``: on a
 CUDA tensor it launches ``csrc/flash_attention.cu``, on a CPU tensor it
 runs ``flash_attention_plain``.  A plain build passes
 ``attention=flash_attention_plain``.  Nothing falls back at run time.
-The kernel takes a head_dim that is a multiple of 16 up to 128; on the
-card, ``build`` raises ``NotImplementedError`` for a config beyond that
-(gemma3-12b's 256, ROADMAP.md §1, LM item 5) unless the caller passes an
-attention function.  ``api.attention`` names the route; the SSM family
-(mamba2-780m) has no attention layer, so its route is named but never
-called, and its head_dim (d_model / n_heads) is not checked.
-Decode attends over the caches with ``attention.decode_attend``, as the
-reference does.
+The kernel takes a head_dim that is a multiple of 16 up to 256
+(gemma3-12b's and paligemma-3b's 256 included); on the card, ``build``
+raises ``NotImplementedError`` for a config beyond that unless the caller
+passes an attention function.  ``api.attention`` names the route; the
+SSM family (mamba2-780m) has no attention layer, so its route is named
+but never called, and its head_dim (d_model / n_heads) is not checked.
+The VLM's layers carry the prefix mask, so its prefill attention goes
+through ``attend_chunked`` and its route is never called either; the
+encoder-decoder's route takes the decoder's causal self-attention in
+``decode_train`` (``models/encdec.py``).  Decode attends over the caches
+with ``attention.decode_attend``, as the reference does.
 
-Batch layout: {"tokens": (B, S)}.  The encoder-decoder (``_build_encdec``)
-and the VLM family are not ported yet (``transformer.refuse_unported``).
+Batch layouts, as the reference's:
+  dense/moe/ssm/hybrid : {"tokens": (B, S)}
+  vlm                  : + {"img_embeds": (B, prefix, D)}   (SigLIP stub)
+  encdec               : {"frames": (B, S_enc, D), "tokens": (B, S)}
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from ..kernels import flash_attention as FA
 from ..kernels import ops
 from ..sharding.rules import Axes
 from . import attention as attn_lib
+from . import encdec as encdec_lib
 from . import ssm as ssm_lib
 from . import transformer as tfm
 from .config import ModelConfig, ShapeCell
@@ -90,8 +99,7 @@ def _route(cfg: ModelConfig, attention: Optional[Callable],
             raise NotImplementedError(
                 f"{cfg.name}: head_dim {cfg.resolved_head_dim} is beyond "
                 f"csrc/flash_attention.cu (a multiple of 16 up to "
-                f"{FA.MAX_HEAD_DIM}): flash_attention.cu at head_dim 256 "
-                f"(ROADMAP.md §1, LM item 5)")
+                f"{FA.MAX_HEAD_DIM})")
         attention = ops.flash_attention
     return attention, getattr(attention, "__name__", repr(attention))
 
@@ -100,15 +108,44 @@ def _tokens(batch: Dict[str, Any], dev) -> torch.Tensor:
     return torch.as_tensor(batch["tokens"], device=dev).long()
 
 
+def _embeds(batch: Dict[str, Any], name: str, dev):
+    """``batch[name]`` (img_embeds or frames) on the device, or None."""
+    x = batch.get(name)
+    return None if x is None else torch.as_tensor(x, device=dev)
+
+
+def _batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    axes: Dict[str, Any] = {"tokens": ("batch", None)}
+    if cfg.family == "vlm":
+        axes["img_embeds"] = ("batch", None, None)
+    if cfg.family == "encdec":
+        axes["frames"] = ("batch", None, None)
+    return axes
+
+
+def _token_specs(cfg: ModelConfig, shape: ShapeCell) -> Dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
+    if cfg.family == "vlm":
+        specs["img_embeds"] = torch.empty((B, cfg.prefix_tokens, cfg.d_model),
+                                          dtype=torch.bfloat16, device="meta")
+    if cfg.family == "encdec":
+        specs["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                      dtype=torch.bfloat16, device="meta")
+    return specs
+
+
 def build(cfg: ModelConfig, remat_policy: Optional[str] = "full",
           attention: Optional[Callable] = None,
           device=None) -> ModelAPI:
     """The model's API on ``device`` (the GPU unless ``device="cpu"``)
     with prefill attention ``attention(q, k, v, window, softcap)`` (default
     the flash kernel, see the module docstring)."""
-    tfm.refuse_unported(cfg)
     dev = resolve_device(device)
     attend, route = _route(cfg, attention, dev)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, remat_policy, attend, route, dev)
+    tfm.require_decoder(cfg)
 
     def init(key, dtype=torch.float32):
         return tfm.model_init(key, cfg, dtype, dev)[0]
@@ -119,16 +156,20 @@ def build(cfg: ModelConfig, remat_policy: Optional[str] = "full",
 
     def forward_logits(values, batch, remat=None):
         return tfm.forward(values, cfg, _tokens(batch, dev), attend,
+                           img_embeds=_embeds(batch, "img_embeds", dev),
                            remat_policy=remat)
 
     def loss_fn(values, batch, key=None):
         tokens = _tokens(batch, dev)
         logits, _ = forward_logits(values, batch, remat_policy)
-        # predict token t+1 from the prefix up to t
-        return cross_entropy(logits[:, :-1], tokens[:, 1:])
+        # predict token t+1 from the prefix up to t; the VLM's image
+        # prefix positions predict nothing
+        pred = logits[:, cfg.prefix_tokens:][:, :-1]
+        return cross_entropy(pred, tokens[:, 1:])
 
     def prefill_fn(values, batch, max_seq=None):
         return tfm.prefill(values, cfg, _tokens(batch, dev), attend,
+                           img_embeds=_embeds(batch, "img_embeds", dev),
                            max_seq=max_seq)
 
     def decode_fn(values, caches, token, pos):
@@ -145,13 +186,53 @@ def build(cfg: ModelConfig, remat_policy: Optional[str] = "full",
                if cfg.family in ("ssm", "hybrid") else None)
         return [tfm.LayerCache(kv=kv, ssm=ssm) for _ in cfg.layer_kinds()]
 
-    def input_specs(shape: ShapeCell):
-        return {"tokens": torch.empty((shape.global_batch, shape.seq_len),
-                                      dtype=torch.int32, device="meta")}
+    return ModelAPI(cfg, init, abstract, loss_fn, prefill_fn, decode_fn,
+                    decode_cache_specs, decode_cache_axes,
+                    lambda shape: _token_specs(cfg, shape),
+                    lambda: _batch_axes(cfg), dev, route)
 
-    def input_axes():
-        return {"tokens": ("batch", None)}
+
+def _build_encdec(cfg: ModelConfig, remat_policy, attend: Callable,
+                  route: str, dev: torch.device) -> ModelAPI:
+    """The encoder-decoder's API (``repro.models.lm._build_encdec``):
+    ``prefill_fn(values, batch)`` takes no ``max_seq`` and returns
+    ``(logits, (enc_out, cross_k, cross_v))``; ``decode_fn`` steps an
+    ``encdec.EncDecCache``.  The decoder's causal self-attention in
+    ``decode_train`` goes through ``attend``."""
+
+    def init(key, dtype=torch.float32):
+        return encdec_lib.model_init(key, cfg, dtype, dev)[0]
+
+    def abstract():
+        return encdec_lib.abstract_params(cfg)
+
+    def loss_fn(values, batch, key=None):
+        tokens = _tokens(batch, dev)
+        enc_out = encdec_lib.encode(values, cfg, _embeds(batch, "frames", dev))
+        logits = encdec_lib.decode_train(values, cfg, tokens, enc_out, attend,
+                                         remat_policy)
+        return cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+    def prefill_fn(values, batch):
+        enc_out = encdec_lib.encode(values, cfg, _embeds(batch, "frames", dev))
+        logits = encdec_lib.decode_train(values, cfg, _tokens(batch, dev),
+                                         enc_out, attend)
+        ck, cv = encdec_lib.prefill_cross(values, cfg, enc_out)
+        return logits, (enc_out, ck, cv)
+
+    def decode_fn(values, cache, token, pos):
+        return encdec_lib.decode_step(values, cfg, cache,
+                                      torch.as_tensor(token, device=dev).long(),
+                                      int(pos))
+
+    def decode_cache_specs(batch: int, seq: int, dtype=torch.bfloat16):
+        return encdec_lib.init_cache(cfg, batch, seq, dtype, device="meta")
+
+    def decode_cache_axes(batch: int, seq: int):
+        ax = Axes((None,) + tuple(KV_AXES))   # + the stacked-layer dim
+        return encdec_lib.EncDecCache(ax, ax, ax, ax)
 
     return ModelAPI(cfg, init, abstract, loss_fn, prefill_fn, decode_fn,
-                    decode_cache_specs, decode_cache_axes, input_specs,
-                    input_axes, dev, route)
+                    decode_cache_specs, decode_cache_axes,
+                    lambda shape: _token_specs(cfg, shape),
+                    lambda: _batch_axes(cfg), dev, route)

@@ -57,6 +57,25 @@ def split(tree):
     return values, axes
 
 
+def stack_layers(init_fn, keys):
+    """(values, axes) of the P trees ``init_fn(key)`` for each of ``keys``,
+    stacked on a leading "layers" dim, as the reference stacks them.  Each
+    layer is drawn and copied into the stacked tensors in turn, so the init
+    holds one layer beyond the stack."""
+    stacked = axes = None
+    for l, key in enumerate(keys):
+        vals, axes = split(init_fn(key))
+        if stacked is None:
+            stacked = tree_map(lambda v: v.new_empty((len(keys),)
+                                                     + tuple(v.shape)), vals)
+        for s, v in zip(tree_leaves(stacked), tree_leaves(vals)):
+            s[l].copy_(v)
+        del vals
+    axes = tree_map(lambda a: ("layers",) + a, axes,
+                    is_leaf=lambda x: isinstance(x, tuple))
+    return stacked, axes
+
+
 def dense_init(key, shape, axes, scale: float = 1.0, dtype=torch.float32,
                device=None) -> P:
     """normal(key, shape) * scale / sqrt(fan_in), fan_in = shape[-2]."""

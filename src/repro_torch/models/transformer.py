@@ -1,5 +1,6 @@
 """The decoder-only transformer (``repro.models.transformer``): the dense,
-MoE, SSM (Mamba-2) and hybrid (parallel attention + SSM) families.
+MoE, SSM (Mamba-2), hybrid (parallel attention + SSM) and prefix-VLM
+families.
 
 One layer body, eager: layers run in a Python loop (the reference scans
 them), each with its own window from ``cfg.layer_kinds()``, so gemma2's
@@ -16,9 +17,14 @@ reference does.
 The SSM family has no attention: each layer's SSD block hands its state
 (final h, conv tail) to decode.  The hybrid family runs attention and SSD
 in parallel on the same normed input and averages their normed outputs.
-The MoE family's FFN is ``ffn.moe_apply``.  The VLM image prefix and the
-encoder-decoder raise ``NotImplementedError`` naming their ROADMAP.md
-item (``refuse_unported``); they never compute something else.
+The MoE family's FFN is ``ffn.moe_apply``.  The VLM (paligemma) prepends
+``img_embeds`` (B, prefix_tokens, d_model) to the embedded text and
+passes the prefix mask (bidirectional over the image prefix, OR'd into
+the causal mask) to every layer as ``extra_mask``, so its prefill
+attention goes through ``attend_chunked``, as the reference's does; its
+caches hold the prefix's K/V and decode positions run on after it.  The
+encoder-decoder is ``models/encdec.py`` (``lm.build`` dispatches it
+there); the functions here refuse it (``require_decoder``).
 """
 from __future__ import annotations
 
@@ -37,17 +43,16 @@ from .config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_WAITS = {"vlm": "the VLM image prefix (ROADMAP.md §1, LM item 3)",
-          "encdec": "the encoder-decoder (ROADMAP.md §1, LM item 4)"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
-def refuse_unported(cfg: ModelConfig) -> None:
-    """Raise for what still waits: the VLM image prefix and the
-    encoder-decoder (any family but the four ported)."""
-    if cfg.family not in FAMILIES or cfg.prefix_tokens:
-        what = _WAITS.get(cfg.family, f"family {cfg.family!r}")
-        raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
+def require_decoder(cfg: ModelConfig) -> None:
+    """Raise for a family this decoder-only stack does not build: the
+    encoder-decoder is ``models/encdec.py``."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is no "
+                         f"decoder-only transformer (the encoder-decoder is "
+                         f"models/encdec.py)")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -78,7 +83,7 @@ def layer_init(key, cfg: ModelConfig, moe: bool, dtype=torch.float32,
     """One layer's P tree: its matrices drawn in float32 and stored in
     ``dtype``, its norms' scales and the SSM's 1-D leaves in float32 (the
     reference keeps float32 masters and casts at use)."""
-    refuse_unported(cfg)
+    require_decoder(cfg)
     d = cfg.d_model
     ks = prng.split(key, 4)
     norm = lambda: pp.zeros_init((d,), ("d_model",), device=device)  # noqa: E731
@@ -111,7 +116,7 @@ def model_init(key, cfg: ModelConfig, dtype=torch.float32, device=None):
     cast once; layers are drawn one at a time into the stacked tensors, so
     the init holds one layer beyond the model.  On the meta device nothing
     is drawn (``abstract``)."""
-    refuse_unported(cfg)
+    require_decoder(cfg)
     ks = prng.split(key, cfg.n_layers + 3)
     tree: Dict[str, Any] = {
         "embed": pp.embed_init(ks[0], cfg.padded_vocab, cfg.d_model,
@@ -123,21 +128,9 @@ def model_init(key, cfg: ModelConfig, dtype=torch.float32, device=None):
         tree["lm_head"] = pp.dense_init(
             ks[1], (cfg.d_model, cfg.padded_vocab), ("d_model", "vocab"),
             dtype=dtype, device=device)
-    stacked = layer_axes = None
-    for l in range(cfg.n_layers):
-        vals, axes = pp.split(layer_init(ks[3 + l], cfg,
-                                         moe=cfg.family == "moe",
-                                         dtype=dtype, device=device))
-        if stacked is None:
-            layer_axes = axes
-            stacked = pp.tree_map(lambda v: v.new_empty((cfg.n_layers,)
-                                                        + tuple(v.shape)), vals)
-        flat_s, flat_v = pp.tree_leaves(stacked), pp.tree_leaves(vals)
-        for s, v in zip(flat_s, flat_v):
-            s[l].copy_(v)
-        del vals, flat_v
-    stacked_axes = pp.tree_map(lambda a: ("layers",) + a, layer_axes,
-                               is_leaf=lambda x: isinstance(x, tuple))
+    stacked, stacked_axes = pp.stack_layers(
+        lambda k: layer_init(k, cfg, moe=cfg.family == "moe", dtype=dtype,
+                             device=device), ks[3:3 + cfg.n_layers])
     top_vals, top_axes = pp.split(tree)
     return ({**top_vals, "layers": stacked},
             {**top_axes, "layers": stacked_axes})
@@ -246,24 +239,42 @@ def layer_slice(values, l: int):
     return pp.tree_map(lambda v: v[l], values["layers"])
 
 
+def _prefix_mask(prefix_len: int, S: int, device):
+    """Bidirectional over the image prefix (paligemma), causal elsewhere:
+    bool (S, S) OR'd into the causal mask; None without a prefix."""
+    if not prefix_len:
+        return None
+    i = torch.arange(S, device=device)
+    return (i[:, None] < prefix_len) & (i[None, :] < prefix_len)
+
+
 def forward(values, cfg: ModelConfig, tokens, attend: Callable,
             img_embeds=None, remat_policy: Optional[str] = None,
             collect_kv: bool = False):
-    """Train/prefill forward over tokens (B, S).  Returns (logits, kvs):
-    kvs a list of each layer's ((k, v) or None, SSM state or None) when
-    ``collect_kv``, else None.
-    ``remat_policy`` is the reference's jit memory policy; eager torch
-    recomputes nothing, and the values do not depend on it."""
-    refuse_unported(cfg)
-    del img_embeds, remat_policy
+    """Train/prefill forward over tokens (B, S_text), with ``img_embeds``
+    (B, prefix_tokens, D) prepended where the config has a prefix.
+    Returns (logits over the prefix and the text, kvs): kvs a list of each
+    layer's ((k, v) or None, SSM state or None) when ``collect_kv``, else
+    None.  ``remat_policy`` is the reference's jit memory policy; eager
+    torch recomputes nothing, and the values do not depend on it."""
+    require_decoder(cfg)
+    del remat_policy
     x = embed_tokens(values, cfg, tokens)
+    if cfg.prefix_tokens:
+        if img_embeds is None:
+            raise ValueError(f"{cfg.name}: the image prefix needs "
+                             f"img_embeds (B, {cfg.prefix_tokens}, "
+                             f"{cfg.d_model})")
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     x = constrain(x, ("batch", "seq", "embed_act"))
     positions = torch.arange(S, dtype=torch.int64, device=x.device)
+    extra_mask = _prefix_mask(cfg.prefix_tokens, S, x.device)
     kvs = [] if collect_kv else None
     for l, window in enumerate(cfg.layer_kinds()):
         x, kv = layer_apply(layer_slice(values, l), x, cfg, window, positions,
-                            attend, collect_kv=collect_kv)
+                            attend, extra_mask=extra_mask,
+                            collect_kv=collect_kv)
         if collect_kv:
             kvs.append(kv)
     return unembed(values, cfg, x), kvs
@@ -280,7 +291,7 @@ def init_layer_caches(cfg: ModelConfig, batch: int, max_seq: int,
     """Per-layer decode caches: rings of ``window`` slots for local layers
     shorter than ``max_seq``, linear caches of ``max_seq`` otherwise (none
     for the SSM family); SSM states for the SSM and hybrid families."""
-    refuse_unported(cfg)
+    require_decoder(cfg)
     KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     caches = []
     for window in cfg.layer_kinds():
@@ -299,7 +310,7 @@ def decode_step(values, cfg: ModelConfig, caches: List[LayerCache], token,
     """One decode step: token (B, 1) at position ``pos``.  Returns (logits
     (B, 1, V), caches): each layer's KV cache written in place, its SSM
     state replaced by the stepped one."""
-    refuse_unported(cfg)
+    require_decoder(cfg)
     x = embed_tokens(values, cfg, token)
     x = constrain(x, ("batch", None, "embed_act"))
     B = x.shape[0]
@@ -349,7 +360,8 @@ def prefill(values, cfg: ModelConfig, tokens, attend: Callable,
     over in the ring layout (slot s = the latest position with
     pos % W == s); the others are zero-padded out to ``max_seq`` slots so
     decode has room to append; SSM layers hand off their final (h, conv)
-    state (``transformer.py:346-383``).
+    state (``transformer.py:346-383``).  A VLM's caches hold the image
+    prefix's K/V first, so its decode positions start after the prefix.
     """
     logits, kvs = forward(values, cfg, tokens, attend, img_embeds=img_embeds,
                           collect_kv=True)

@@ -114,19 +114,25 @@ def random_params(cfg: NGPConfig, seed: int, table_scale: float = 1e-4) -> Dict:
 
 def lm_from_jax_values(values, cfg, device=None, dtype=torch.float32) -> Dict:
     """The reference LM's values tree (``api.init``'s: dicts of arrays,
-    layers stacked on axis 0, as ``model_init`` builds them; any leaf
-    ``np.asarray`` reads) -> the port's params on ``device`` (the GPU
-    unless ``device="cpu"``): matrices in ``dtype``, 1-D scales (the
-    norms) in float32, as ``models.transformer.model_init`` stores them."""
+    layers stacked on axis 0, as ``model_init`` builds them: under
+    ``layers``, or the encoder-decoder's ``encoder`` and ``decoder``; any
+    leaf ``np.asarray`` reads) -> the port's params on ``device`` (the GPU
+    unless ``device="cpu"``): matrices (the encoder-decoder's position
+    tables too) in ``dtype``, 1-D scales (the norms) in float32, as
+    ``models.transformer.model_init`` and ``models.encdec.model_init``
+    store them."""
     dev = resolve_device(device)
-    n_layers = {np.shape(v)[0] for v in tree_leaves(values["layers"])}
-    if n_layers != {cfg.n_layers}:
-        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers, the values "
-                         f"stack {sorted(n_layers)}")
+    stacks = ({"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+              if cfg.family == "encdec" else {"layers": cfg.n_layers})
+    for name, want in stacks.items():
+        n_layers = {np.shape(v)[0] for v in tree_leaves(values[name])}
+        if n_layers != {want}:
+            raise ValueError(f"{cfg.name}: {want} layers in {name}, the "
+                             f"values stack {sorted(n_layers)}")
 
     def tree(v, stacked):
         if isinstance(v, dict):
-            return {k: tree(x, stacked or k == "layers") for k, x in v.items()}
+            return {k: tree(x, stacked or k in stacks) for k, x in v.items()}
         a = np.asarray(v)
         t = torch.from_numpy(np.array(a, np.float32, copy=True))
         matrix = a.ndim - int(stacked) >= 2

@@ -10,6 +10,13 @@ drawn from ``PRNGKey(seed)``, each later one from a fresh split of the
 running key, through ``prng.categorical`` (the reference's
 ``jax.random.categorical``); temperature 0 is greedy.  So for the same
 model, requests and seed the tokens are the reference engine's.
+
+Like the reference's, the engine serves the decoder families only
+(``require_servable``): it passes a tokens-only batch and
+``prefill_fn(..., max_seq=...)``, so a VLM would lack its ``img_embeds``
+and the encoder-decoder's ``prefill_fn`` takes no ``max_seq`` and hands
+over no self-KV cache.  The reference fails on them (an assertion, a
+``TypeError``); the port refuses them up front with a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,6 +30,23 @@ import torch
 from .. import prng
 from ..device import resolve_device
 from ..models import lm as lm_lib
+
+
+UNSERVED = {
+    "vlm": "the VLM needs img_embeds in its batch, and the engine passes "
+           "tokens only",
+    "encdec": "the encoder-decoder's prefill_fn takes no max_seq and hands "
+              "over no self-KV cache (its decode starts from "
+              "encdec.init_cache)"}
+
+
+def require_servable(cfg) -> None:
+    """Raise ``ValueError`` for a family the engine cannot serve, saying
+    why (``UNSERVED``)."""
+    why = UNSERVED.get(cfg.family)
+    if why is not None:
+        raise ValueError(f"{cfg.name}: the serving engine serves the decoder "
+                         f"families only, as the reference's does: {why}")
 
 
 @dataclasses.dataclass
@@ -46,6 +70,7 @@ class ServingEngine:
     def __init__(self, api: lm_lib.ModelAPI, values, scfg: ServeConfig,
                  device=None):
         """``values`` on ``device`` (the GPU unless ``device="cpu"``)."""
+        require_servable(api.cfg)
         self.api = api
         self.values = values
         self.scfg = scfg

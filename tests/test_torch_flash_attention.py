@@ -28,6 +28,9 @@ RTOL, ATOL = 2e-4, 2e-5
 BF16_ATOL, BF16_REL = 2e-2, 5e-3
 SHAPES = {"gqa": (2, 256, 4, 2, 64), "mha": (1, 128, 4, 4, 32),
           "mqa": (1, 512, 8, 1, 64)}
+# head_dim 256: gemma3-12b's GQA 16 / 8 and paligemma-3b's MQA 8 / 1
+WIDE_SHAPES = {"gqa 16/8": (1, 160, 16, 8, 256), "mqa 8/1": (1, 200, 8, 1, 256)}
+H100_SMEM_PER_CTA = 232_448          # 227 KB, the most one CTA can have
 
 
 def _qkv(B, S, H, KV, Dh, seed, dtype=np.float32):
@@ -55,6 +58,17 @@ def _oracle(q, k, v, window, cap):
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_flash_plain_matches_attend_full(shape, window, cap):
     B, S, H, KV, Dh = SHAPES[shape]
+    q, k, v = _qkv(B, S, H, KV, Dh, seed=S + H + window)
+    got = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                    window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), _oracle(q, k, v, window, cap),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (64, 0.0), (0, 50.0)])
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES))
+def test_flash_plain_head_dim_256_matches_attend_full(shape, window, cap):
+    B, S, H, KV, Dh = WIDE_SHAPES[shape]
     q, k, v = _qkv(B, S, H, KV, Dh, seed=S + H + window)
     got = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
                                     window=window, softcap=cap)
@@ -112,6 +126,14 @@ def test_gemma2_attention_widths_match_the_reference(name):
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def _check_key_tiles(dtype, S, window, Dh):
+    dt = DTYPES[dtype]
+    want = direct_key_tiles(S, window, dt, Dh)
+    assert tfa.grid(3, S, 5, Dh, dt) == (len(want), 15)
+    for q0, tiles in want.items():
+        assert list(tfa.key_tiles(q0, S, window, Dh, dt)) == tiles, q0
+
+
 @pytest.mark.parametrize("dtype,S,window", KEY_TILE_CASES)
 def test_flash_key_tiles_match_a_direct_count(dtype, S, window):
     """For every query tile, the key tiles the wrapper reckons the kernel
@@ -119,32 +141,73 @@ def test_flash_key_tiles_match_a_direct_count(dtype, S, window):
     a window whose first key falls mid-tile and a length off the tile grid.
     (``test_torch_gpu`` holds the compiled kernels' range to the same
     count.)"""
-    dt = DTYPES[dtype]
-    want = direct_key_tiles(S, window, dt)
-    assert tfa.grid(3, S, 5, dt) == (len(want), 15)
-    for q0, tiles in want.items():
-        assert list(tfa.key_tiles(q0, S, window, dt)) == tiles, q0
+    _check_key_tiles(dtype, S, window, 128)
+
+
+@pytest.mark.parametrize("dtype,S,window", KEY_TILE_CASES)
+def test_flash_key_tiles_at_head_dim_256_match_a_direct_count(dtype, S,
+                                                               window):
+    """The same at the head-dim-256 tiles (64 query rows, 32-key tiles)."""
+    _check_key_tiles(dtype, S, window, 256)
+
+
+def _direct_smem(Dh, dt, qb, kb):
+    """The bytes of the tiles, counted one by one: K and V tiles of kb rows,
+    two buffers; Q's tile of qb rows where it is not staged in a K/V
+    buffer; fp32's P tile of qb rows of kb + 8 floats."""
+    item = 2 if dt == torch.bfloat16 else 4
+    row = Dh * item + 16
+    want = row * 2 * 2 * kb
+    if dt == torch.float32:
+        want += row * qb + qb * (kb + 8) * 4
+    elif Dh > 128:
+        want += row * qb
+    else:
+        assert qb <= 2 * kb
+    assert row % 16 == 0 and (row // 16) % 2 == 1    # odd: no bank conflicts
+    return want
 
 
 @pytest.mark.parametrize("Dh", [16, 48, 64, 128])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_smem_counts_the_tiles_and_fits_two_ctas(dtype, Dh):
-    """Shared memory: two buffers each of a K and a V tile (rows padded by
-    16 B); for bf16 Q's tile fits in one of them, for fp32 it has its own
-    and the P tile; two CTAs fit on one SM at every head width (the
-    H100's 228 KB, 1 KB of it reserved per CTA)."""
+    """Shared memory up to 128 dims: two buffers each of a K and a V tile
+    (rows padded by 16 B); for bf16 Q's tile fits in one of them, for fp32
+    it has its own and the P tile; two CTAs fit on one SM at every head
+    width (the H100's 228 KB, 1 KB of it reserved per CTA)."""
     dt = DTYPES[dtype]
-    qb, kb = tfa.QUERY_TILE[dt], tfa.KEY_TILE[dt]
-    item = 2 if dt == torch.bfloat16 else 4
-    row = Dh * item + 16
-    want = row * 2 * 2 * kb
-    if dt == torch.float32:
-        want += row * qb + qb * tfa.F32_P_ROW * 4
-    else:
-        assert qb <= 2 * kb
-    assert tfa.smem_bytes(Dh, dt) == want
-    assert row % 16 == 0 and (row // 16) % 2 == 1    # odd: no bank conflicts
+    qb, kb = tfa.tiles(Dh, dt)
+    assert (qb, kb) == (tfa.QUERY_TILE[dt], tfa.KEY_TILE[dt])
+    assert tfa.smem_bytes(Dh, dt) == _direct_smem(Dh, dt, qb, kb)
     assert 2 * (tfa.smem_bytes(Dh, dt) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("Dh", [144, 192, 256])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_smem_past_128_fits_one_cta(dtype, Dh):
+    """Past 128 dims the tiles are the 256 bound's (bf16: 64 query rows
+    over 32-key tiles, Q's tile its own; fp32: 64 over 32), counted the same
+    way, within the 227 KB one CTA can have; bf16's two CTAs still fit one
+    SM."""
+    dt = DTYPES[dtype]
+    qb, kb = tfa.tiles(Dh, dt)
+    assert (qb, kb) == (64, 32)
+    assert tfa.head_dim_bound(Dh) == 256
+    assert tfa.smem_bytes(Dh, dt) == _direct_smem(Dh, dt, qb, kb)
+    assert tfa.smem_bytes(Dh, dt) <= H100_SMEM_PER_CTA
+    if dt == torch.bfloat16:
+        assert 2 * (tfa.smem_bytes(Dh, dt) + 1024) <= 228 * 1024
+    assert tfa.grid(2, 4608, 16, Dh, dt) == (72, 32)
+
+
+def test_flash_wrapper_refuses_past_256_before_launch():
+    """A head_dim past 256, or not a multiple of 16, is refused before any
+    launch (on a meta tensor: nothing builds or runs)."""
+    assert tfa.MAX_HEAD_DIM == 256
+    for Dh in (272, 200):
+        q = torch.empty((1, 8, 2, Dh), device="meta")
+        with pytest.raises(ValueError, match="up to 256"):
+            tfa.flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (128, 0.0), (0, 50.0)])

@@ -3,9 +3,12 @@ volume-render kernels held to their plain versions bit for bit on small
 inputs (the hash encode at ragged point counts, feature widths and level
 counts, rows that are no power of two, a table off 8-B alignment), flash
 attention within its tolerances (fp32 and bf16, window, softcap, GQA
-ratios 1, 2 and 8, lengths off the tile grid), and the launchers asking
-for the shared memory (and, for flash attention, the tiles and grid) the
-wrappers reckon.  Training steps on the card against the same steps on
+ratios 1, 2 and 8, lengths off the tile grid, head widths up to 256,
+gemma3-12b's GQA at head_dim 256), and the launchers asking for the
+shared memory (and, for flash attention, the tiles, grid and key tiles
+at both head-dim bounds) the wrappers reckon.  The LM smoke configs
+(gemma2, gemma3, the MoE, SSM and hybrid families, paligemma, whisper)
+on the kernel route against their plain builds.  Training steps on the card against the same steps on
 the CPU, and the kernel field of a trained field against its plain
 field.  The fused march over a subset of a frame's blocks, in any order,
 against those blocks' rows of the full launch, and a short reuse
@@ -102,7 +105,7 @@ def test_flash_attention_matches_plain(dtype, ratio, window, softcap, cuda):
     assert_attention_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("Dh", [16, 48, 80, 128])
+@pytest.mark.parametrize("Dh", [16, 48, 80, 128, 144, 208, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_head_widths(dtype, Dh, cuda):
     rng = np.random.default_rng(Dh)
@@ -113,12 +116,31 @@ def test_flash_attention_head_widths(dtype, Dh, cuda):
                            FA.flash_attention_plain(q, k, v, 48), dtype)
 
 
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 0.0),
+                                            (0, 50.0), (1024, 0.0)])
+@pytest.mark.parametrize("H,KV", [(16, 8), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_256(dtype, H, KV, window, softcap, cuda):
+    """The head-dim-256 instantiations (gemma3-12b's GQA 16 / 8 and an MQA
+    8 / 1) against the plain version, at a length off both tiles, with a
+    window shorter and longer than it, and with the softcap."""
+    rng = np.random.default_rng(H + KV + window)
+    S, Dh = 1155, 256
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               .to(cuda).to(dtype)
+               for sh in ((1, S, H, Dh), (1, S, KV, Dh), (1, S, KV, Dh)))
+    assert_attention_close(FA.flash_attention(q, k, v, window, softcap),
+                           FA.flash_attention_plain(q, k, v, window, softcap),
+                           dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_launcher_uses_the_reckoned_tiles(dtype, cuda):
-    for Dh, S in ((128, 8192), (64, 333), (16, 1)):
+    for Dh, S in ((128, 8192), (64, 333), (16, 1), (256, 4608), (144, 333),
+                  (256, 1)):
         assert FA.launch_config(Dh, 2, S, 8, dtype) == (
-            FA.QUERY_TILE[dtype], FA.KEY_TILE[dtype], FA.smem_bytes(Dh, dtype),
-            *FA.grid(2, S, 8, dtype))
+            *FA.tiles(Dh, dtype), FA.smem_bytes(Dh, dtype),
+            *FA.grid(2, S, 8, Dh, dtype))
 
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -126,10 +148,11 @@ KEY_TILE_CASES = [(dtype, S, window) for dtype in DTYPES
                   for S in (200, 333, 512) for window in (0, 1, 48, 100, 130)]
 
 
-def direct_key_tiles(S, window, dt):
+def direct_key_tiles(S, window, dt, Dh=128):
     """{first row of each query tile: first keys of the key tiles holding an
-    unmasked (query, key) pair of its rows}, counted pair by pair."""
-    qb, kb = FA.QUERY_TILE[dt], FA.KEY_TILE[dt]
+    unmasked (query, key) pair of its rows}, counted pair by pair, at the
+    tiles of head_dim ``Dh``."""
+    qb, kb = FA.tiles(Dh, dt)
     qi = np.arange(S)[:, None]
     kj = np.arange(S)[None, :]
     keep = kj <= qi
@@ -147,7 +170,15 @@ def test_flash_kernel_key_tiles_match_a_direct_count(dtype, S, window, cuda):
     reckoning."""
     dt = DTYPES[dtype]
     for q0, tiles in direct_key_tiles(S, window, dt).items():
-        assert list(FA.launched_key_tiles(q0, S, window, dt)) == tiles, q0
+        assert list(FA.launched_key_tiles(q0, S, window, 128, dt)) == tiles, q0
+
+
+@pytest.mark.parametrize("dtype,S,window", KEY_TILE_CASES)
+def test_flash_kernel_key_tiles_at_head_dim_256(dtype, S, window, cuda):
+    """The same at the head-dim-256 instantiations' tiles."""
+    dt = DTYPES[dtype]
+    for q0, tiles in direct_key_tiles(S, window, dt, 256).items():
+        assert list(FA.launched_key_tiles(q0, S, window, 256, dt)) == tiles, q0
 
 
 @pytest.mark.parametrize("R,S,A,group", [(1005, 50, 1, 3), (1005, 50, 17, 3),
@@ -565,14 +596,17 @@ def test_smoke_lm_kernel_build_matches_plain(dtype, cuda):
 
 def test_build_refuses_a_head_dim_beyond_the_kernel(cuda):
     """On the card the default route is the flash kernel or nothing:
-    gemma3-12b's head_dim 256 raises at build time, naming its ROADMAP
-    item; a build that passes the plain function explicitly goes on."""
+    gemma3-12b's head_dim 256 takes the kernel; a head_dim past 256 raises
+    at build time; a build that passes the plain function explicitly goes
+    on."""
     from repro_torch import configs
     from repro_torch.models import lm
     cfg = configs.get("gemma3-12b")
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        lm.build(cfg, device=cuda)
-    plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
+    assert lm.build(cfg, device=cuda).attention == "flash_attention"
+    wide = dataclasses.replace(cfg, head_dim=288)
+    with pytest.raises(NotImplementedError, match="head_dim 288"):
+        lm.build(wide, device=cuda)
+    plain = lm.build(wide, device=cuda, attention=FA.flash_attention_plain)
     assert plain.attention == "flash_attention_plain"
 
 
@@ -640,7 +674,7 @@ def test_new_families_build_on_the_kernel_route(cuda):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "hymba_1_5b",
-                                  "mamba2_780m"])
+                                  "mamba2_780m", "gemma3_12b"])
 def test_smoke_new_families_kernel_build_matches_plain(arch, cuda):
     """The MoE, hybrid and SSM smoke configs (float32; the MoE at
     capacity_factor 8) on the flash kernel against the plain build on the
@@ -667,3 +701,66 @@ def test_smoke_new_families_kernel_build_matches_plain(arch, cuda):
         sp, cp = plain.decode_fn(values, cp, tok, pos)
         torch.testing.assert_close(sk, sp, rtol=0, atol=1e-3)
         tok = torch.argmax(sp[:, 0], dim=-1)[:, None]
+
+
+def test_smoke_vlm_kernel_build_matches_plain(cuda):
+    """paligemma's smoke config (float32) on the kernel route against the
+    plain build on the same weights and image prefix: every layer carries
+    the prefix mask, so neither prefill calls its route (no flash launch)
+    and the logits are equal; decode after the prefix as well."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get_smoke("paligemma_3b"),
+                              dtype="float32")
+    kern = lm.build(cfg, device=cuda)
+    plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
+    values = kern.init(prng.PRNGKey(0))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))),
+             "img_embeds": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.prefix_tokens, cfg.d_model), dtype=np.float32))}
+    S = cfg.prefix_tokens + 40
+    ops.reset_launch_counts()
+    lk, ck = kern.prefill_fn(values, batch, max_seq=S + 6)
+    assert ops.launch_counts()["flash_attention"] == 0
+    lp, cp = plain.prefill_fn(values, batch, max_seq=S + 6)
+    assert torch.equal(lk, lp)
+    tok = torch.argmax(lp[:, -1], dim=-1)[:, None]
+    for pos in range(S, S + 6):
+        sk, ck = kern.decode_fn(values, ck, tok, pos)
+        sp, cp = plain.decode_fn(values, cp, tok, pos)
+        assert torch.equal(sk, sp)
+        tok = torch.argmax(sp[:, 0], dim=-1)[:, None]
+
+
+def test_smoke_encdec_kernel_build_matches_plain(cuda):
+    """whisper's smoke config (float32): ``prefill_fn`` on the kernel route
+    (one flash launch a decoder layer) against the plain build, logits
+    within atol 1e-3 and the encoder output and cross K/V equal; then the
+    token-by-token decode from position 0 over the cross K/V, whose last
+    logits match ``decode_train``'s."""
+    from repro_torch import configs
+    from repro_torch.models import encdec, lm
+    cfg = dataclasses.replace(configs.get_smoke("whisper_medium"),
+                              dtype="float32")
+    kern = lm.build(cfg, device=cuda)
+    plain = lm.build(cfg, device=cuda, attention=FA.flash_attention_plain)
+    values = kern.init(prng.PRNGKey(0))
+    rng = np.random.default_rng(2)
+    S = 24
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, S))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32))}
+    ops.reset_launch_counts()
+    lk, (ek, ckk, cvk) = kern.prefill_fn(values, batch)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    lp, (ep, ckp, cvp) = plain.prefill_fn(values, batch)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=1e-3)
+    assert torch.equal(ek, ep) and torch.equal(ckk, ckp) and \
+        torch.equal(cvk, cvp)
+    cache = encdec.init_cache(cfg, 2, S, torch.float32, cuda)._replace(
+        cross_k=ckk, cross_v=cvk)
+    for pos in range(S):
+        step, cache = kern.decode_fn(values, cache,
+                                     batch["tokens"][:, pos:pos + 1], pos)
+    torch.testing.assert_close(step[:, 0], lk[:, -1], rtol=0, atol=1e-3)

@@ -162,7 +162,8 @@ def test_bf16_storage_is_the_float32_draw_cast_once():
 
 
 @pytest.mark.parametrize("arch_name", ["gemma2-27b", "deepseek-moe-16b",
-                                       "mamba2-780m", "hymba-1.5b"])
+                                       "mamba2-780m", "hymba-1.5b",
+                                       "gemma3-12b", "paligemma-3b"])
 def test_abstract_and_specs_match_reference_shapes(arch_name):
     jc, tc = jconfigs.get(arch_name), tconfigs.get(arch_name)
     japi, tapi = jlm.build(jc), tlm.build(tc, device="cpu")
@@ -180,8 +181,9 @@ def test_abstract_and_specs_match_reference_shapes(arch_name):
         [tuple(x.shape) for x in arrays(c)] for c in jspecs]
     assert all(x.device.type == "meta" for c in tspecs for x in arrays(c))
     cell = jconfig.SHAPES["prefill_32k"]
-    assert tuple(tapi.input_specs(cell)["tokens"].shape) == \
-        japi.input_specs(cell)["tokens"].shape
+    jin, tin = japi.input_specs(cell), tapi.input_specs(cell)
+    assert sorted(tin) == sorted(jin)
+    assert all(tuple(tin[k].shape) == jin[k].shape for k in jin)
     assert tapi.input_axes() == japi.input_axes()
     def axes(caches):
         return [[None if a is None else [tuple(x) for x in a] for a in c]
@@ -192,20 +194,24 @@ def test_abstract_and_specs_match_reference_shapes(arch_name):
 
 def test_routes_and_families():
     """The kernel route by default (on the CPU its plain version, at any
-    head_dim); on the card a head_dim beyond the kernel (gemma3-12b's 256)
-    raises rather than run without it, but not for the attention-free SSM
-    family, whose route is named and never called; a plain build by
-    request; the MoE, SSM and hybrid families build, and only the VLM
-    prefix and the encoder-decoder raise."""
+    head_dim); on the card gemma3-12b's and paligemma-3b's head_dim 256
+    takes the kernel, and a head_dim beyond it raises rather than run
+    without it, but not for the attention-free SSM family, whose route is
+    named and never called; a plain build by request; every family builds,
+    the VLM and the encoder-decoder included."""
     assert tlm.build(tconfigs.get("gemma2-27b"), device="cpu").attention == \
         "flash_attention"
     gemma3 = tconfigs.get("gemma3-12b")
     assert tlm.build(gemma3, device="cpu").attention == "flash_attention"
-    assert not tlm.kernel_takes(gemma3)
-    with pytest.raises(NotImplementedError, match="head_dim 256.*LM item 5"):
-        tlm._route(gemma3, None, torch.device("cuda"))
-    assert tlm._route(tconfigs.get("gemma2-27b"), None,
-                      torch.device("cuda"))[1] == "flash_attention"
+    assert tlm.kernel_takes(gemma3)
+    for arch in ("gemma2-27b", "gemma3-12b", "paligemma-3b",
+                 "whisper-medium"):
+        assert tlm._route(tconfigs.get(arch), None,
+                          torch.device("cuda"))[1] == "flash_attention"
+    wide = dataclasses.replace(gemma3, head_dim=272)
+    assert not tlm.kernel_takes(wide)
+    with pytest.raises(NotImplementedError, match="head_dim 272.*up to 256"):
+        tlm._route(wide, None, torch.device("cuda"))
     from repro_torch.kernels.flash_attention import flash_attention_plain
     plain = tlm.build(tconfigs.get_smoke("gemma2-27b"), device="cpu",
                       attention=flash_attention_plain)
@@ -216,11 +222,11 @@ def test_routes_and_families():
     for arch in ("dbrx_132b", "deepseek_moe_16b", "mamba2_780m", "hymba_1_5b"):
         api = tlm.build(tconfigs.get_smoke(arch), device="cpu")
         assert api.attention == "flash_attention"
-    for arch, item in (("paligemma_3b", "LM item 3"),
-                       ("whisper_medium", "LM item 4")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{item}.*not ported yet"):
-            tlm.build(tconfigs.get_smoke(arch), device="cpu")
+    for arch in ("paligemma_3b", "whisper_medium"):
+        api = tlm.build(tconfigs.get_smoke(arch), device="cpu")
+        assert api.attention == "flash_attention"
+    assert tlm.build(tconfigs.get_smoke("whisper_medium"), device="cpu"
+                     ).decode_fn.__qualname__.startswith("_build_encdec")
 
 
 @pytest.mark.parametrize("arch_name", ["dbrx_132b", "deepseek_moe_16b",
