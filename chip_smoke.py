@@ -230,13 +230,43 @@ root of a checkout, on a machine with one NVIDIA H100.
    ``decode_train``'s within ``LM_GATE_ATOL``; 24 flash launches in the
    main run, tokens in range, logits finite.
 
+14. ``[lmtrain]``: LM training on the training route (``lm.build(cfg,
+   "full", attention=attention.attend_causal)``: the reference's
+   ``attend_chunked``, which autograd runs through; the flash kernel has
+   no backward and the reference's training reaches no Pallas kernel).
+   Gate (e): ``ops.flash_attention`` on a CUDA input that requires grad,
+   and a loss on the kernel route, raise.  Gate (a): fp32 with TF32 off,
+   hymba-1.5b at 4 layers (a local layer among them) and whisper-medium
+   at 2 + 2, full width, 2 x 256 tokens: the card's loss and gradients
+   (``train/step.make_loss_and_grads``) against the CPU port's on the
+   same params and tokens, the loss within rtol 1e-5, each gradient leaf
+   within 1e-3 of its own max abs, and no leaf zero on the card where the
+   CPU's is not.  Gate (b), the main runs through
+   ``launch/train.train_loop`` at full width and depth, float32 masters
+   and bf16 compute: mamba2-780m at the launcher's defaults (8 x 128, 50
+   steps, lr 3e-4, warmup 5), then one async checkpoint of (values,
+   opt_state) to a temporary directory, removed afterwards; hymba-1.5b
+   at 4 x 1,024, 20 steps.  Every loss finite, the last at least 0.5
+   below the first (``tests/test_train.py:42-54``), the trainer on
+   ``attend_causal``, no kernel launched.  Readings beside the card's
+   name and power limit: init s, ms a step (median after 3 warm steps),
+   tokens/s, peak GB, the checkpoint's hand-off and write ms and GB, and
+   5 more steps under ``torch.profiler`` (device time, idle share).  Gate
+   (c): ``train_loop`` with a failure injected at step 9 (one restart
+   from the latest checkpoint, every 4 steps) against an uninterrupted
+   run, mamba2-780m at full width cut to 4 layers, 12 steps: the losses
+   of steps 10-11 within rtol 1e-4 (``tests/test_train.py:73-95``).
+   Gate (d): hymba-1.5b's loss and gradients at 1 x 1,024 with remat
+   None, "full" and "dots": equal losses; each one's ms and peak memory.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
 ``[train]``, the two trained frames together; for ``[reuse]``, the
 trajectory; for ``[serve]``, the main run; for ``[lm]``, ``[moe]`` and
 ``[ssm]``, the main run's ``generate``, with exactly one flash launch a
 layer with attention a wave; mamba2-780m launches none; for ``[vlm]`` and
-``[encdec]`` their main runs: none, and one a decoder layer).  The JSON
+``[encdec]`` their main runs: none, and one a decoder layer; for
+``[lmtrain]`` the two training runs: none).  The JSON
 row of flash attention carries the sum of the LM main runs' launches.
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
@@ -248,7 +278,7 @@ asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
 ``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``,
-``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]`` and ``[encdec]``.  Prints one
+``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]``, ``[encdec]`` and ``[lmtrain]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -2804,6 +2834,415 @@ def run_encdec(dev, run=ENCDEC_RUN, smoke=False):
     return n_launch
 
 
+# ------------------------------------------------------------------ [lmtrain]
+# (arch, batch, seq, steps, lr, warmup): the launcher's defaults for
+# mamba2-780m (warmup steps // 10), hymba-1.5b at 4 x 1,024
+LMTRAIN_MAIN = (("mamba2_780m", 8, 128, 50, 3e-4, 5),
+                ("hymba_1_5b", 4, 1024, 20, 3e-4, 2))
+LMTRAIN_REMAT = "full"             # the launcher's, without --smoke
+LMTRAIN_LOSS_DROP = 0.5            # tests/test_train.py:42-54
+LMTRAIN_WARM_STEPS = 3             # left out of the median step time
+LMTRAIN_PROFILE_STEPS = 5
+# gate (a): (arch, depth cut, (batch, seq)), fp32, card against CPU
+LMTRAIN_GATE = (("hymba_1_5b", dict(n_layers=4), (2, 256)),
+                ("whisper_medium", dict(n_layers=2, encoder_layers=2),
+                 (2, 256)))
+LMTRAIN_GATE_RTOL = 1e-5           # the loss
+LMTRAIN_GATE_GRAD = 1e-3           # a gradient leaf, of its own max abs
+# whisper-medium's loss: a 2^-20 change of its frames moves it 2.1e-5
+LMTRAIN_ENCDEC_RTOL = 1e-4
+# gate (c): mamba2-780m cut to 4 layers, the reference test's schedule
+LMTRAIN_RESTART = dict(arch="mamba2_780m", n_layers=4, steps=12, batch=8,
+                       seq=128, fail_at_step=9, ckpt_every=4, lr=1e-3,
+                       warmup=1)
+LMTRAIN_RESTART_RTOL = 1e-4        # tests/test_train.py:73-95
+LMTRAIN_REMAT_RUN = ("hymba_1_5b", 1, 1024)   # gate (d)
+
+
+def card_label(dev) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if dev.type != "cuda":
+        return "cpu (no card)"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def train_api(cfg, dev, remat=LMTRAIN_REMAT):
+    from repro_torch.models import attention, lm
+    return lm.build(cfg, remat_policy=remat, attention=attention.attend_causal,
+                    device=dev)
+
+
+def train_batch(cfg, batch, seq, dev, seed=SEED):
+    """{"tokens"} from ``TokenPipeline`` step 0 (and numpy-seeded float32
+    frames for the encoder-decoder) on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    b = {"tokens": TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq,
+                                 seed=seed, device=dev).batch_at(0)}
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(seed)
+        b["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(dev)
+    return b
+
+
+def grad_errors(got, want):
+    """[(max abs error / max abs, norm of the error / norm)] of each pair of
+    gradient leaves; raises unless every leaf is finite."""
+    import math
+    import torch
+    out = []
+    for a, b in zip(got, want):
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            raise AssertionError("[lmtrain] a gradient is not finite")
+        scale, err = float(b.abs().max()), float((a - b).abs().max())
+        norm, err_n = float(b.norm()), float((a - b).norm())
+        out.append((err / scale if scale else math.inf if err else 0.0,
+                    err_n / norm if norm else math.inf if err_n else 0.0))
+    return out
+
+
+def lmtrain_gate_a(dev, gates, label, tag="[lmtrain]", smoke=False):
+    """Gate (a): fp32 (TF32 off), full width, depth cut: the card's loss
+    and gradients against the CPU port's at the same params (drawn on the
+    card, copied) and tokens.  Every leaf finite and none zero on the card
+    where the CPU's is not.  Beside each, the CPU's own change when its
+    input (the embedding table; the encoder-decoder's frames) is scaled by
+    1 + 2^-20, the floor any float32 rounding can reach.  A decoder: the
+    loss within LMTRAIN_GATE_RTOL and each gradient leaf within
+    LMTRAIN_GATE_GRAD of its own max abs.  The encoder-decoder at the
+    reference's init is chaotic (that 2^-20 moves every gradient leaf by
+    ~10 % of its norm, ROADMAP §3): its loss within LMTRAIN_ENCDEC_RTOL,
+    its gradients printed, not gated."""
+    import dataclasses
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch import prng
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.train.step import make_loss_and_grads
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{tag} gate (a) needs TF32 off")
+    cpu = torch.device("cpu")
+    for arch, cut, (B, S) in gates:
+        cfg = dataclasses.replace(
+            (configs.get_smoke if smoke else configs.get)(arch),
+            dtype="float32", **({} if smoke else cut))
+        encdec = cfg.family == "encdec"
+        t0 = time.perf_counter()
+        api_d, api_h = train_api(cfg, dev, None), train_api(cfg, cpu, None)
+        values = api_d.init(prng.PRNGKey(LM_INIT_SEED))
+        batch = train_batch(cfg, B, S, dev)
+        loss_d, g_d = make_loss_and_grads(api_d.loss_fn, 1)(values, batch)
+        g_d = [g.cpu() for g in tree_leaves(g_d)]
+        values = tree_map(lambda v: v.cpu(), values)
+        batch = {k: v.cpu() for k, v in batch.items()}
+        cpu_fn = make_loss_and_grads(api_h.loss_fn, 1)
+        loss_h, g_h = cpu_fn(values, batch)
+        g_h = tree_leaves(g_h)
+        nudge = 1 + 2.0 ** -20
+        if encdec:
+            loss_p, g_p = cpu_fn(values, dict(batch,
+                                              frames=batch["frames"] * nudge))
+        else:
+            loss_p, g_p = cpu_fn(dict(values, embed=values["embed"] * nudge),
+                                 batch)
+        loss_d, loss_h, loss_p = float(loss_d), float(loss_h), float(loss_p)
+        errs = grad_errors(g_d, g_h)
+        floor = grad_errors(tree_leaves(g_p), g_h)
+        dead = sum(int(float(b.abs().max()) > 0 and float(a.abs().max()) == 0)
+                   for a, b in zip(g_d, g_h))
+        worst, worst_n = max(e for e, _ in errs), max(n for _, n in errs)
+        rel = abs(loss_d - loss_h) / abs(loss_h)
+        limit = LMTRAIN_ENCDEC_RTOL if encdec else LMTRAIN_GATE_RTOL
+        print(f"{tag} gate (a): {cfg.name} fp32, {cfg.n_layers} layers"
+              f"{f' + {cfg.encoder_layers} encoder layers' if encdec else ''}"
+              f", {B} x {S} tokens on attend_causal: loss card {loss_d:.7f} / "
+              f"cpu {loss_h:.7f} (rel {rel:.2e}, limit {limit}); {len(g_d)} "
+              f"gradient leaves, worst max_abs_err / max_abs {worst:.3e} "
+              f"(limit {'none' if encdec else LMTRAIN_GATE_GRAD}), worst "
+              f"||err|| / ||grad|| {worst_n:.3e}; the CPU's own change with "
+              f"its {'frames' if encdec else 'embedding'} x (1 + 2^-20): loss "
+              f"{abs(loss_p - loss_h) / abs(loss_h):.2e}, gradients "
+              f"{max(e for e, _ in floor):.3e} / "
+              f"{max(n for _, n in floor):.3e}; leaves zero on the card only "
+              f"{dead}; {time.perf_counter() - t0:.1f} s; {label}", flush=True)
+        if rel > limit or dead or (not encdec and worst > LMTRAIN_GATE_GRAD):
+            raise AssertionError(f"{tag} gate (a) failed for {cfg.name}")
+        del values, g_d, g_h, g_p
+        free_card(dev, tag)
+
+
+def lmtrain_main_run(cfg, batch, seq, steps, lr, warmup, dev, label,
+                     tag="[lmtrain]", save=False):
+    """Gate (b) for one config: ``launch/train.train_loop`` in the config's
+    dtype at the launcher's remat, every launch count 0 before it and
+    after; every loss finite and the last at least LMTRAIN_LOSS_DROP below
+    the first; the API on ``attend_causal``.  Readings: init s, ms a step
+    (median after LMTRAIN_WARM_STEPS), tokens/s, peak GB; with ``save``
+    one async checkpoint of (values, opt_state) to a temporary directory,
+    removed afterwards (hand-off and write ms, GB); then
+    LMTRAIN_PROFILE_STEPS steps under torch.profiler.  Returns the main
+    run's flash launches (0)."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    free_card(dev, tag)
+    api = train_api(cfg, dev)
+    if api.attention != "attend_causal":
+        raise AssertionError(f"{tag} the trainer is on {api.attention}")
+    init_s = []
+
+    def timed_init(key):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = api.init(key)
+        sync(dev)
+        init_s.append(time.perf_counter() - t0)
+        return out
+
+    tcfg = TrainConfig(lr=lr, warmup_steps=warmup, total_steps=steps)
+    timings = []
+    ops.reset_launch_counts()
+    values, opt, losses = train_loop(
+        dataclasses.replace(api, init=timed_init), tcfg, steps, batch, seq,
+        verbose=False, timings=timings)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    ls = [l for _, l in losses]
+    step_ms = [1e3 * s for _, s in timings[LMTRAIN_WARM_STEPS:]]
+    med = float(np.median(step_ms))
+    n_par = sum(v.numel() for v in tree_leaves(values))
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_par} parameters (param_count {cfg.param_count()}), float32 "
+          f"masters, compute {cfg.dtype}, remat {LMTRAIN_REMAT!r}, route "
+          f"{api.attention}; {steps} steps of {batch} x {seq} tokens, lr {lr} "
+          f"warmup {warmup}: init {init_s[0]:.1f} s; step median {med:.1f} ms "
+          f"(min {min(step_ms):.1f}, max {max(step_ms):.1f}, after "
+          f"{LMTRAIN_WARM_STEPS} warm; first {1e3 * timings[0][1]:.1f} ms); "
+          f"{batch * seq / med * 1e3:.0f} tokens/s; peak {peak:.2f} GB; loss "
+          f"{ls[0]:.4f} -> {ls[-1]:.4f} (every 10th: "
+          f"{[round(l, 4) for l in ls[::10]]}); kernels launched "
+          f"{launched or 'none'}; {label}", flush=True)
+    if not all(math.isfinite(l) for l in ls):
+        raise AssertionError(f"{tag} {cfg.name}: a loss is not finite")
+    if not ls[-1] <= ls[0] - LMTRAIN_LOSS_DROP:
+        raise AssertionError(f"{tag} {cfg.name}: the loss fell "
+                             f"{ls[0] - ls[-1]:.4f}, less than "
+                             f"{LMTRAIN_LOSS_DROP}")
+    if launched:
+        raise AssertionError(f"{tag} the training path launched {launched}")
+    if save:
+        root = Path(tempfile.mkdtemp(prefix="lmtrain_ckpt_"))
+        try:
+            mgr = CheckpointManager(root, keep=1)
+            sync(dev)
+            t0 = time.perf_counter()
+            mgr.save(steps - 1, (values, opt))
+            back_ms = 1e3 * (time.perf_counter() - t0)
+            mgr.wait()
+            gb = sum(p.stat().st_size for p in root.rglob("*.npy")) / 1e9
+            print(f"{tag} {cfg.name}: one async checkpoint of (values, "
+                  f"opt_state), {gb:.2f} GB: hand-off {back_ms:.0f} ms "
+                  f"(host copy {1e3 * mgr.last_handoff_s:.0f} ms), write "
+                  f"{1e3 * mgr.last_write_s:.0f} ms on the writer thread; "
+                  f"{label}", flush=True)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    step_fn, _ = make_train_step(api.loss_fn, tcfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq,
+                         device=dev)
+
+    def more_steps():
+        nonlocal values, opt
+        for i in range(steps, steps + LMTRAIN_PROFILE_STEPS):
+            values, opt, m = step_fn(values, opt, {"tokens": pipe.batch_at(i)},
+                                     i)
+            float(m["loss"])
+
+    report_device_time(f"{tag} {cfg.name}: {LMTRAIN_PROFILE_STEPS} more "
+                       f"steps ({label})", more_steps, dev,
+                       share_of="flash_attention")
+    del values, opt
+    return launched.get("flash_attention", 0)
+
+
+def lmtrain_restart(dev, label, tag="[lmtrain]", smoke=False,
+                    run=LMTRAIN_RESTART):
+    """Gate (c): ``train_loop`` with an injected failure at
+    ``fail_at_step`` (one restart: the params drawn again, the latest
+    checkpoint restored) against an uninterrupted run, both checkpointing
+    every ``ckpt_every`` steps to temporary directories; the losses of
+    the steps after the failure within LMTRAIN_RESTART_RTOL."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import repro_torch.configs as configs
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainConfig
+
+    free_card(dev, tag)
+    r = dict(run)
+    cfg = (configs.get_smoke if smoke else configs.get)(r["arch"])
+    if not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=r["n_layers"])
+    api = train_api(cfg, dev)
+    tcfg = TrainConfig(lr=r["lr"], warmup_steps=r["warmup"],
+                       total_steps=r["steps"])
+    root = Path(tempfile.mkdtemp(prefix="lmtrain_restart_"))
+    try:
+        t0 = time.perf_counter()
+        _, _, fail = train_loop(
+            api, tcfg, r["steps"], r["batch"], r["seq"], ckpt_dir=root / "a",
+            ckpt_every=r["ckpt_every"], max_restarts=1,
+            fail_at_step=r["fail_at_step"], verbose=False)
+        t1 = time.perf_counter()
+        _, _, ok = train_loop(
+            api, tcfg, r["steps"], r["batch"], r["seq"], ckpt_dir=root / "b",
+            ckpt_every=r["ckpt_every"], verbose=False)
+        t2 = time.perf_counter()
+        gb = sum(p.stat().st_size for p in (root / "b").rglob("*.npy")) / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d_fail, d_ok = dict(fail), dict(ok)
+    after = range(r["fail_at_step"] + 1, r["steps"])
+    errs = [abs(d_fail[s] - d_ok[s]) / abs(d_ok[s]) for s in after]
+    print(f"{tag} gate (c): {cfg.name} at {cfg.n_layers} layers, "
+          f"{r['steps']} steps of {r['batch']} x {r['seq']}, checkpoints "
+          f"every {r['ckpt_every']} ({gb:.2f} GB kept of the uninterrupted "
+          f"run): failure injected at step {r['fail_at_step']}, restarted "
+          f"from the latest checkpoint; losses of steps {list(after)} "
+          f"{[round(d_fail[s], 6) for s in after]} against "
+          f"{[round(d_ok[s], 6) for s in after]}, rel err "
+          f"{max(errs):.2e} (limit {LMTRAIN_RESTART_RTOL}); runs "
+          f"{t1 - t0:.1f} s and {t2 - t1:.1f} s; {label}", flush=True)
+    if sorted(d_fail) != list(range(r["steps"])) or max(errs) > \
+            LMTRAIN_RESTART_RTOL or not np.isfinite(list(d_fail.values())).all():
+        raise AssertionError(f"{tag} gate (c) failed")
+
+
+def lmtrain_remat(dev, label, tag="[lmtrain]", smoke=False,
+                  run=LMTRAIN_REMAT_RUN):
+    """Gate (d): one step's loss and gradients (the step's forward and
+    backward) of hymba-1.5b with remat None, "full" and "dots" on the same
+    params and tokens, each policy twice (the first call warms the
+    shapes): the losses equal; the second call's ms and the peak memory
+    printed, and whether every gradient leaf's float64 sum equals None's."""
+    import repro_torch.configs as configs
+    import torch
+    from repro_torch import prng
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train.step import make_loss_and_grads
+
+    free_card(dev, tag)
+    arch, B, S = run
+    cfg = (configs.get_smoke if smoke else configs.get)(arch)
+    values = train_api(cfg, dev).init(prng.PRNGKey(LM_INIT_SEED))
+    batch = train_batch(cfg, B, S, dev)
+    base = (torch.cuda.memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    losses, sums0 = {}, None
+    for policy in (None, "full", "dots"):
+        fn = make_loss_and_grads(train_api(cfg, dev, policy).loss_fn, 1)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            (loss, grads), ms = host_ms(lambda: fn(values, batch), dev)
+            sums = [float(g.double().sum()) for g in tree_leaves(grads)]
+            del grads
+        peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else float("nan"))
+        sums0 = sums0 or sums
+        losses[policy] = float(loss)
+        print(f"{tag} gate (d): {cfg.name} {B} x {S}, remat {policy!r}: loss "
+              f"{float(loss):.7f}, forward and backward {ms:.1f} ms (second "
+              f"call), peak {peak:.2f} GB ({base:.2f} GB of params before "
+              f"it); gradient leaves' sums equal None's: {sums == sums0}; "
+              f"{label}", flush=True)
+    if len(set(losses.values())) != 1:
+        raise AssertionError(f"{tag} gate (d): the losses differ: {losses}")
+    del values
+
+
+def lmtrain_guard(dev, tag="[lmtrain]"):
+    """Gate (e): the flash kernel's wrapper refuses CUDA inputs that
+    require grad, and so does a loss through the kernel route; on the CPU
+    the route runs its plain version, which differentiates."""
+    import repro_torch.configs as configs
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_loss_and_grads
+
+    q = torch.randn((1, 64, 4, 64), device=dev, requires_grad=True)
+    kv = torch.randn((1, 64, 2, 64), device=dev)
+    scfg = configs.get_smoke("hymba_1_5b")
+    kern = lm.build(scfg, device=dev)            # the kernel route
+    grads_fn = make_loss_and_grads(kern.loss_fn, 1)
+    svals = kern.init(prng.PRNGKey(0))
+    sbatch = train_batch(scfg, 2, 32, dev)
+    refused = []
+    for what, fn in (
+            ("ops.flash_attention", lambda: ops.flash_attention(q, kv, kv)),
+            ("the kernel route's loss", lambda: grads_fn(svals, sbatch))):
+        try:
+            fn()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused.append(what)
+    with torch.no_grad():
+        ops.flash_attention(q, kv, kv)
+    print(f"{tag} gate (e): refused with a tensor that requires grad: "
+          f"{refused}; under no_grad the kernel runs", flush=True)
+    if dev.type == "cuda" and len(refused) != 2:
+        raise AssertionError(f"{tag} gate (e): only {refused} refused")
+
+
+def run_lmtrain(dev, main=LMTRAIN_MAIN, gates=LMTRAIN_GATE,
+                restart=LMTRAIN_RESTART, remat_run=LMTRAIN_REMAT_RUN,
+                smoke=False):
+    """[lmtrain]: LM training on the training route (``attend_causal``):
+    gate (e), gate (a), the main runs (gate (b)), gate (c) and gate (d)
+    (``smoke``: each config's SMOKE, for a CPU rehearsal).  Returns the
+    main runs' flash launches (none: the route launches no kernel)."""
+    import repro_torch.configs as configs
+
+    tag, t_phase = "[lmtrain]", time.perf_counter()
+    label = card_label(dev)
+    print(f"{tag} on {label}", flush=True)
+    lmtrain_guard(dev)
+    lmtrain_gate_a(dev, gates, label, smoke=smoke)
+    launches = {}
+    for i, (arch, batch, seq, steps, lr, warmup) in enumerate(main):
+        cfg = (configs.get_smoke if smoke else configs.get)(arch)
+        launches[f"{cfg.name} training"] = lmtrain_main_run(
+            cfg, batch, seq, steps, lr, warmup, dev, label, save=i == 0)
+    lmtrain_restart(dev, label, smoke=smoke, run=restart)
+    lmtrain_remat(dev, label, smoke=smoke, run=remat_run)
+    free_card(dev, tag)
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def attention_bounds(dtype, flop, pairs, softcap):
     """The bf16 settings' second bound: the special-function units, one
     exp2 a pair and, with the softcap, tanhf's exp2 and reciprocal."""
@@ -2972,14 +3411,15 @@ def check_attention_ragged(dev, Dh=64, heads=((8, 8), (8, 1))):
 
 def run(dev, bundle, hw, attn, seq, wide, wide_seq, reps=3, train_kw=TRAIN,
         lm_waves=LM_WAVES, lm_max_seq=LM_MAX_SEQ, family_kw=None,
-        new_kw=None):
+        new_kw=None, lmtrain_kw=None):
     """Phases 2-13 on ``dev`` at ``bundle``, image size ``hw``, the LM
     configs ``attn`` and ``wide`` (their attention widths for phase 5, over
     ``seq`` and ``wide_seq`` tokens; the whole models for ``[lm]``, on
     ``lm_waves``), training ``train_kw``, then the ``[moe]`` and ``[ssm]``
     phases (``run_families(**family_kw)``), ``[vlm]`` and ``[encdec]``
-    (``run_vlm`` / ``run_encdec(dev, **new_kw)``); returns the kernel rows
-    of the JSON line."""
+    (``run_vlm`` / ``run_encdec(dev, **new_kw)``), ``[lmtrain]``
+    (``run_lmtrain(dev, **lmtrain_kw)``); returns the kernel rows of the
+    JSON line."""
     from repro_torch import params
     from repro_torch.core import scene
 
@@ -3007,6 +3447,9 @@ def run(dev, bundle, hw, attn, seq, wide, wide_seq, reps=3, train_kw=TRAIN,
     lm_launches["whisper-medium"] = run_encdec(dev, **(new_kw or {}))
     print(f"[lm] flash_attention launches in the LM main runs: "
           f"{lm_launches}", flush=True)
+    train_launches = run_lmtrain(dev, **(lmtrain_kw or {}))
+    print(f"[lmtrain] flash_attention launches in the training main runs: "
+          f"{train_launches}", flush=True)
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches,
                     flash_attention=sum(lm_launches.values()))
@@ -3091,10 +3534,7 @@ def main() -> int:
     rows = run(dev, bundle, bundle.image_hw, gemma2_27b.CONFIG, ATTN_SEQ,
                gemma3_12b.CONFIG, WIDE_SEQ)
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_label(dev), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

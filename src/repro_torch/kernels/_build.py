@@ -120,7 +120,19 @@ def check(err: int, what: str) -> None:
 
 def require(what: str, t, dtype, ndim: int, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim`` dims
-    on ``device`` — the only inputs the kernels take."""
+    on ``device`` — the only inputs the kernels take — and, while autograd
+    records, unless it needs no gradient: the kernels have no backward, so
+    their output would carry none and a gradient through them would come
+    back without a word (attention's projections and norms would get
+    nothing)."""
+    import torch
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(
+            f"{what}: the CUDA kernels have no backward, and this tensor "
+            f"requires grad.  Differentiate through the plain route "
+            f"(models.attention.attend_causal for the LM, as train/step.py "
+            f"does; core.model.param_fns for the NGP field), or call the "
+            f"kernel under torch.no_grad()")
     if (t.dtype != dtype or t.dim() != ndim or not t.is_contiguous()
             or t.device != device):
         raise ValueError(

@@ -1,2 +1,2 @@
-"""Launchers (``repro.launch``): ``serve`` (the LM slot engine) and
-``render_serve`` so far."""
+"""Launchers (``repro.launch``): ``serve`` (the LM slot engine),
+``render_serve`` and ``train`` (the LM trainer) so far."""

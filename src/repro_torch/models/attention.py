@@ -9,6 +9,8 @@ Three execution paths, as in the reference:
 Prefill self-attention without an ``extra_mask`` goes through the
 attention function the model was built with (``lm.build``: the flash
 kernel by default); these are the reference's own paths.
+``attend_causal`` is the reference's causal call of ``attend_chunked``
+with that function's signature: the training route.
 
 Positions are int64 here (int32 in the reference); a padded or empty slot
 holds ``INVALID_POS``, the reference's int32 maximum.  A window is a
@@ -136,6 +138,17 @@ def attend_chunked(q, k, v, q_pos, k_pos, window: int = 0,
     out = acc / torch.clamp_min(d_run[..., None], 1e-30)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Q, H, Dh)
     return out.to(q.dtype)
+
+
+def attend_causal(q, k, v, window: int = 0, softcap: float = 0.0):
+    """Causal (optionally windowed) self-attention over positions 0..S-1
+    through ``attend_chunked`` in chunks of min(1024, S): the reference's
+    own prefill and training call (``repro/models/transformer.py:138``),
+    op for op.  Plain torch, so autograd runs through it: the training
+    route (``train/step.py``), where the flash kernel has no backward."""
+    S = q.shape[1]
+    pos = torch.arange(S, dtype=torch.int64, device=q.device)
+    return attend_chunked(q, k, v, pos, pos, window, softcap, min(1024, S))
 
 
 # ------------------------------------------------------------------ caches

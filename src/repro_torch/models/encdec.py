@@ -39,7 +39,7 @@ from . import ffn as ffn_lib
 from . import params as pp
 from .config import ModelConfig
 from .params import P
-from .transformer import compute_dtype
+from .transformer import compute_dtype, remat
 
 DEC_POS = 32768     # decoder positions: the assigned shapes' 32k contexts
 
@@ -181,24 +181,29 @@ def decode_train(values, cfg: ModelConfig, tokens, enc_out, attend,
                  remat_policy: Optional[str] = None):
     """Teacher-forced decoder pass; causal self-attention through
     ``attend(q, k, v, window, softcap)``.  Returns logits (B, S, V).
-    ``remat_policy`` is the reference's jit memory policy; eager torch
-    recomputes nothing, and the values do not depend on it."""
-    del remat_policy
+    ``remat_policy`` wraps each decoder layer (``transformer.remat``;
+    the reference's decoder takes "full" only and keeps everything
+    otherwise, the port saves the matmuls under "dots" too): memory in
+    backward only, the values do not depend on it."""
     S = tokens.shape[1]
     x = values["embed"][tokens].to(compute_dtype(cfg))
     x = x + values["dec_pos"][:S][None].to(x.dtype)
     pos = torch.arange(S, dtype=torch.int64, device=x.device)
     enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int64,
                            device=x.device)
-    for l in range(cfg.n_layers):
-        p = _layer(values["decoder"], l)
+
+    def body(x, p, enc_out):
         h = pp.rms_norm(x, p["pre_attn_norm"], cfg.norm_eps)
         k, v = _kv(p["attn"], h)
         x = x + _mha(p["attn"], h, k, v, pos, pos, causal=True, attend=attend)
         hc = pp.rms_norm(x, p["pre_cross_norm"], cfg.norm_eps)
         ck, cv = _kv(p["cross"], enc_out)
         x = x + _mha(p["cross"], hc, ck, cv, pos, enc_pos, causal=False)
-        x = constrain(_ffn(p, x, cfg), ("batch", "seq", "embed_act"))
+        return constrain(_ffn(p, x, cfg), ("batch", "seq", "embed_act"))
+
+    layer = remat(body, remat_policy)
+    for l in range(cfg.n_layers):
+        x = layer(x, _layer(values["decoder"], l), enc_out)
     return constrain(_logits(values, cfg, x), ("batch", "seq", "vocab_act"))
 
 

@@ -12,7 +12,8 @@ The router's float32 softmax is XLA's CPU softmax op for op
 an IEEE divide), and its top-k a stable descending sort (``top_k``: the lower
 expert index first on a tie, as ``jax.lax.top_k``), so ``_route``'s
 dispatch and combine equal the reference's bit for bit on the same logits,
-and the card's equal the CPU's.
+and the card's equal the CPU's.  Its backward is softmax's rule, as
+``jax.nn.softmax``'s custom JVP, not the derivative of the exp polynomial.
 """
 from __future__ import annotations
 
@@ -81,12 +82,29 @@ def _left_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+class _Softmax(torch.autograd.Function):
+    """XLA's float32 softmax forward; the backward of ``jax.nn.softmax``'s
+    custom JVP, y * (g - sum(y * g)), not autograd through ``xla_exp``'s
+    polynomial."""
+
+    @staticmethod
+    def forward(ctx, x):
+        u = prng.xla_exp(x - x.amax(dim=-1, keepdim=True))
+        y = u / xla_sum(u)[..., None]
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return y * (g - torch.sum(y * g, dim=-1, keepdim=True))
+
+
 def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis in float32, op for op as XLA's
-    CPU runs it: exp(x - max) / sum."""
-    x = logits.float()
-    u = prng.xla_exp(x - x.amax(dim=-1, keepdim=True))
-    return u / xla_sum(u)[..., None]
+    CPU runs it: exp(x - max) / sum; differentiated by softmax's own rule,
+    as the reference's custom JVP is."""
+    return _Softmax.apply(logits.float())
 
 
 def top_k(probs: torch.Tensor, k: int):

@@ -18,6 +18,10 @@ prefill self-attention goes through ``kernels/ops.flash_attention``: on a
 CUDA tensor it launches ``csrc/flash_attention.cu``, on a CPU tensor it
 runs ``flash_attention_plain``.  A plain build passes
 ``attention=flash_attention_plain``.  Nothing falls back at run time.
+The kernel has no backward, and on the card its wrapper raises for an
+input that requires grad, so training builds with
+``attention=attention.attend_causal`` (``attend_chunked``, the
+reference's training route; ``launch/train.py``).
 The kernel takes a head_dim that is a multiple of 16 up to 256
 (gemma3-12b's and paligemma-3b's 256 included); on the card, ``build``
 raises ``NotImplementedError`` for a config beyond that unless the caller

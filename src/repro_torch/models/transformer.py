@@ -59,6 +59,42 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+REMAT_POLICIES = (None, "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, policy: Optional[str]) -> Callable:
+    """``fn`` under the reference's ``jax.checkpoint`` policy while autograd
+    records: "full" keeps only the layer's inputs and recomputes the rest
+    in backward, "dots" keeps the matmul outputs (``checkpoint_dots``),
+    None keeps everything.  Values and gradients do not depend on it."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: one of {REMAT_POLICIES}")
+    if policy is None or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+
+    def wrapped(*args):
+        if not any(t.requires_grad for t in pp.tree_leaves(list(args))
+                   if isinstance(t, torch.Tensor)):
+            return fn(*args)          # nothing to differentiate
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
 # ------------------------------------------------------------------ layer init
 def _attn_init(key, cfg: ModelConfig, dtype, device):
     """Projections stored 2D with combined (heads*head_dim) axes, as the
@@ -228,7 +264,9 @@ def unembed(values, cfg: ModelConfig, x):
     if head is None:
         head = values["embed"].T
     logits = torch.matmul(x, head.to(x.dtype)).float()
-    if cfg.final_softcap:    # softcap's ops, in place: the logits are fresh
+    if cfg.final_softcap and logits.requires_grad:
+        logits = pp.softcap(logits, cfg.final_softcap)
+    elif cfg.final_softcap:  # softcap's ops, in place: the logits are fresh
         logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30
@@ -255,10 +293,10 @@ def forward(values, cfg: ModelConfig, tokens, attend: Callable,
     (B, prefix_tokens, D) prepended where the config has a prefix.
     Returns (logits over the prefix and the text, kvs): kvs a list of each
     layer's ((k, v) or None, SSM state or None) when ``collect_kv``, else
-    None.  ``remat_policy`` is the reference's jit memory policy; eager
-    torch recomputes nothing, and the values do not depend on it."""
+    None.  ``remat_policy`` wraps each layer as the reference's scan body
+    (``remat``): memory in backward only, the values do not depend on
+    it."""
     require_decoder(cfg)
-    del remat_policy
     x = embed_tokens(values, cfg, tokens)
     if cfg.prefix_tokens:
         if img_embeds is None:
@@ -272,9 +310,10 @@ def forward(values, cfg: ModelConfig, tokens, attend: Callable,
     extra_mask = _prefix_mask(cfg.prefix_tokens, S, x.device)
     kvs = [] if collect_kv else None
     for l, window in enumerate(cfg.layer_kinds()):
-        x, kv = layer_apply(layer_slice(values, l), x, cfg, window, positions,
-                            attend, extra_mask=extra_mask,
-                            collect_kv=collect_kv)
+        def body(x, p, window=window):
+            return layer_apply(p, x, cfg, window, positions, attend,
+                               extra_mask=extra_mask, collect_kv=collect_kv)
+        x, kv = remat(body, remat_policy)(x, layer_slice(values, l))
         if collect_kv:
             kvs.append(kv)
     return unembed(values, cfg, x), kvs

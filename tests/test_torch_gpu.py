@@ -8,7 +8,10 @@ gemma3-12b's GQA at head_dim 256), and the launchers asking for the
 shared memory (and, for flash attention, the tiles, grid and key tiles
 at both head-dim bounds) the wrappers reckon.  The LM smoke configs
 (gemma2, gemma3, the MoE, SSM and hybrid families, paligemma, whisper)
-on the kernel route against their plain builds.  Training steps on the card against the same steps on
+on the kernel route against their plain builds.  LM training: the
+kernels refusing inputs that require grad, smoke configs' train steps on
+the training route against the CPU's, the token pipeline, compression
+and checkpoints on the card.  Training steps on the card against the same steps on
 the CPU, and the kernel field of a trained field against its plain
 field.  The fused march over a subset of a frame's blocks, in any order,
 against those blocks' rows of the full launch, and a short reuse
@@ -764,3 +767,137 @@ def test_smoke_encdec_kernel_build_matches_plain(cuda):
         step, cache = kern.decode_fn(values, cache,
                                      batch["tokens"][:, pos:pos + 1], pos)
     torch.testing.assert_close(step[:, 0], lk[:, -1], rtol=0, atol=1e-3)
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """The kernels have no backward: the flash wrapper raises for a CUDA
+    input that requires grad while autograd records (so does a loss on the
+    kernel route), and runs under no_grad."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_loss_and_grads
+    q = torch.randn((1, 40, 4, 64), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 40, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, kv, kv)
+    with torch.no_grad():
+        ops.flash_attention(q, kv, kv)
+    cfg = configs.get_smoke("hymba_1_5b")
+    api = lm.build(cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)))
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_loss_and_grads(api.loss_fn, 1)(api.init(prng.PRNGKey(0)),
+                                            {"tokens": toks})
+
+
+@pytest.mark.parametrize("arch", ["minitron_8b", "hymba_1_5b",
+                                  "deepseek_moe_16b"])
+def test_lm_train_steps_on_the_card_match_the_cpu(arch, cuda):
+    """Three ``make_train_step`` steps of a decoder smoke config (float32,
+    the training route, remat "full" on the card, none on the CPU) on the
+    card against the CPU: metrics within rtol 1e-4, params within atol
+    1e-5, every gradient leaf of the first step nonzero where the CPU's
+    is."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import attention, lm
+    from repro_torch.train.step import (TrainConfig, make_loss_and_grads,
+                                        make_train_step)
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32",
+                              capacity_factor=8.0)
+    apis = {d: lm.build(cfg, remat_policy="full" if d == cuda else None,
+                        attention=attention.attend_causal, device=d)
+            for d in (cuda, torch.device("cpu"))}
+    res = {}
+    for dev, api in apis.items():
+        values = api.init(prng.PRNGKey(0))
+        pipe = TokenPipeline(vocab=cfg.vocab, batch=8, seq_len=32, device=dev)
+
+        def batch(i):
+            return {"tokens": pipe.batch_at(i)}
+        _, g = make_loss_and_grads(api.loss_fn, 1)(values, batch(0))
+        step_fn, init = make_train_step(api.loss_fn, TrainConfig(
+            lr=3e-3, warmup_steps=2, total_steps=30))
+        opt, ms = init(values), []
+        for i in range(3):
+            values, opt, m = step_fn(values, opt, batch(i), i)
+            ms.append({k: float(v) for k, v in m.items()})
+        res[dev.type] = (ms, [v.cpu() for v in optim.tree_leaves(values)],
+                         [x.cpu() for x in optim.tree_leaves(g)])
+    (m_d, v_d, g_d), (m_h, v_h, g_h) = res["cuda"], res["cpu"]
+    for a, b in zip(m_d, m_h):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-6)
+    for a, b in zip(v_d, v_h):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_d, g_h):
+        assert bool(a.abs().max() > 0) == bool(b.abs().max() > 0)
+
+
+def test_encdec_loss_and_grads_on_the_card_match_the_cpu(cuda):
+    """whisper's smoke config (float32, the training route, remat "full"
+    on the card): the loss within rtol 1e-4 of the CPU's and each
+    gradient leaf within 5e-3 of its max abs, none zero on the card alone
+    (its conditioning: ``test_torch_lm_train.py``)."""
+    from repro_torch import configs
+    from repro_torch.models import attention, lm
+    from repro_torch.train.step import make_loss_and_grads
+    cfg = dataclasses.replace(configs.get_smoke("whisper_medium"),
+                              dtype="float32")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (8, 32))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (8, cfg.encoder_seq, cfg.d_model), dtype=np.float32))}
+    out = []
+    for dev, remat in ((cuda, "full"), (torch.device("cpu"), None)):
+        api = lm.build(cfg, remat_policy=remat,
+                       attention=attention.attend_causal, device=dev)
+        loss, g = make_loss_and_grads(api.loss_fn, 1)(
+            api.init(prng.PRNGKey(0)),
+            {k: v.to(dev) for k, v in batch.items()})
+        out.append((float(loss), [x.cpu() for x in optim.tree_leaves(g)]))
+    (l_d, g_d), (l_h, g_h) = out
+    np.testing.assert_allclose(l_d, l_h, rtol=1e-4)
+    for a, b in zip(g_d, g_h):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 5e-3 * scale
+        assert bool(a.abs().max() > 0) == (scale > 0)
+
+
+def test_token_pipeline_and_compression_on_the_card_equal_the_cpu(cuda):
+    """``TokenPipeline`` hands the CPU's tokens to the card;
+    ``int8_compress`` / ``ErrorFeedback.apply`` on the card equal the
+    CPU's bit for bit (every divisor is a device tensor)."""
+    from repro_torch.data import TokenPipeline
+    kw = dict(vocab=256_000, batch=4, seq_len=512, seed=2)
+    assert torch.equal(TokenPipeline(**kw, device=cuda).batch_at(1).cpu(),
+                       TokenPipeline(**kw, device="cpu").batch_at(1))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (37, 300)).astype(np.float32) * 1e-2)
+    for a, b in zip(optim.int8_compress(x.to(cuda)), optim.int8_compress(x)):
+        assert a == b if isinstance(a, int) else torch.equal(a.cpu(), b)
+    g = {"w": x, "b": [x[0]]}
+    out_d = optim.ErrorFeedback.apply(optim.tree_map(lambda t: t.to(cuda), g),
+                                      optim.ErrorFeedback.init(
+                                          optim.tree_map(lambda t: t.to(cuda),
+                                                         g)))
+    out_h = optim.ErrorFeedback.apply(g, optim.ErrorFeedback.init(g))
+    for a, b in zip(optim.tree_leaves(out_d), optim.tree_leaves(out_h)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_checkpoint_of_card_tensors_restores_on_the_card(cuda, tmp_path):
+    """A (values, AdamW state) of card tensors, bf16 leaves included,
+    written asynchronously and restored on the card, leaf for leaf."""
+    from repro_torch.ckpt import CheckpointManager
+    tree = ({"w": torch.randn((64, 32), device=cuda),
+             "h": torch.randn((8,), device=cuda).to(torch.bfloat16)},
+            {"count": torch.ones((), dtype=torch.int32, device=cuda)})
+    mgr = CheckpointManager(tmp_path, keep=1)
+    mgr.save(3, tree)
+    got, step = mgr.restore(optim.tree_map(torch.zeros_like, tree))
+    assert step == 3
+    for a, b in zip(optim.tree_leaves(got), optim.tree_leaves(tree)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
