@@ -259,6 +259,36 @@ root of a checkout, on a machine with one NVIDIA H100.
    Gate (d): hymba-1.5b's loss and gradients at 1 x 1,024 with remat
    None, "full" and "dots": equal losses; each one's ms and peak memory.
 
+15. ``[dryrun]``: the dry-run tools reduced to the card
+   (``launch/dryrun.py``), through its entry point: ``dryrun.main --all
+   --mesh both`` writes the analytic record of every cell on the single-
+   and multi-pod meshes (10 archs x 4 shapes, long_500k skipped outside
+   ``LONG_OK``, and the three ingp-asdr cells), then ``--all --mesh card``
+   every cell's record on the card, one line each (per-device argument
+   GB, compute and memory terms, bottleneck), all under
+   ``chiprun_out/dryrun_torch``; an error record is fatal.  The card mesh
+   measures each cell whose reckoning fits ``dryrun.CARD_BYTES`` (once
+   warm, three times timed, peak memory, launches a call), from ``SEED``:
+   ``asdr_render`` on the main path's 800x800 frame (643,072 padded rays,
+   the kernel field's Phase-I counts) and ``render_serve``'s pooled march
+   on 64 of its sorted blocks, both on the kernel field (``hash_encode``,
+   ``density_mlp``, ``color_mlp``), and the decode_32k and long_500k
+   cells of mamba2-780m and hymba-1.5b; ``asdr_train`` reckons more.
+   Then one LM prefill cell on the flash kernel: the prefill_32k cell
+   with the smallest reckoning at one row among ``DRYRUN_LM_FAMILIES`` (no
+   prefill_32k cell fits the card whole), cut to the most rows up to
+   ``DRYRUN_MAX_ROWS`` that fit.  Gates, fatal: (a) every measured
+   cell's outputs finite; (b) asdr_render's rgb and acc on its first
+   ``DRYRUN_GATE_BLOCKS`` sorted blocks, and each pooled block's march,
+   against the plain field's ``_march_block`` on the same block within
+   RTOL / ATOL, chunks and ray_chunks exact, and the LM cell's prefill
+   once more with layers 0 and 1 recorded, each layer's kernel output on
+   the last row against ``flash_attention_plain`` over all its keys at
+   ATTN_TOL["bf16"]; (c) the LM cell's analytic bound over its measured
+   time at most ``DRYRUN_MAX_SHARE``; (d) the three field kernels launch
+   in each render cell, the flash kernel once a layer a call in the LM
+   cell, and the kernels line lists all seven kernels.
+
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
 ``[train]``, the two trained frames together; for ``[reuse]``, the
@@ -266,8 +296,9 @@ trajectory; for ``[serve]``, the main run; for ``[lm]``, ``[moe]`` and
 ``[ssm]``, the main run's ``generate``, with exactly one flash launch a
 layer with attention a wave; mamba2-780m launches none; for ``[vlm]`` and
 ``[encdec]`` their main runs: none, and one a decoder layer; for
-``[lmtrain]`` the two training runs: none).  The JSON
-row of flash attention carries the sum of the LM main runs' launches.
+``[lmtrain]`` the two training runs: none; for ``[dryrun]`` the measured
+render cells and the LM cell).  The JSON row of flash attention carries
+the sum of the LM main runs' launches and the ``[dryrun]`` LM cell's.
 
 Phases 2-5 use random weights, drawn with numpy from ``SEED`` in the
 reference layout: Glorot-uniform MLPs and hash tables
@@ -278,7 +309,8 @@ asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
 ``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``,
-``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]``, ``[encdec]`` and ``[lmtrain]``.  Prints one
+``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]``, ``[encdec]``, ``[lmtrain]`` and
+``[dryrun]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -3409,17 +3441,243 @@ def check_attention_ragged(dev, Dh=64, heads=((8, 8), (8, 1))):
                                          "plain version at a ragged shape")
 
 
+# The [dryrun] phase: the dry-run tools (``launch/dryrun.py``) reduced to
+# the card.  Records of every cell through the tool's entry point: analytic
+# on the single- and multi-pod meshes; on the card mesh, each cell whose
+# reckoning fits is also measured (the ingp-asdr render cells on the main
+# path's frame, the decode cells of mamba2-780m and hymba-1.5b).  Then one
+# LM prefill cell on the flash kernel, cut to a few rows.
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+DRYRUN_GATE_BLOCKS = 2           # asdr_render's sorted blocks held to plain
+# the LM cell's rows at most: hymba-1.5b's prefill_32k at 4 rows reckons
+# 39.2 GB but held 68 GB after a call on an H100 80GB HBM3 (700 W), too
+# near the card's 80 GB for the gate's second, recording prefill
+DRYRUN_MAX_ROWS = 2
+DRYRUN_MAX_SHARE = 1.05          # above it the count is wrong, not the card
+DRYRUN_RENDER_KERNELS = ("hash_encode", "density_mlp", "color_mlp")
+# prefill families that run the flash kernel at a context their
+# architecture takes: not the SSM (no attention), nor the VLM (its prefix
+# mask goes through attend_chunked), nor the encoder-decoder (whisper's
+# decoder context is bounded; 32k decoder tokens are no user's traffic)
+DRYRUN_LM_FAMILIES = ("dense", "moe", "hybrid")
+
+
+def dryrun_measured(tag, rec):
+    m = rec["measured"]
+    peak = "n/a" if m["peak_bytes"] is None else f"{m['peak_bytes'] / 1e9:.2f}"
+    print(f"[dryrun] {tag}: {m['ms']:.1f} ms (runs {m['ms_runs']}), peak "
+          f"{peak} GB (reckoned {rec['reckoned_bytes'] / 1e9:.1f}), "
+          f"arguments {m['argument_bytes'] / 1e9:.3f} GB, launches a call "
+          f"{m['launches']}, bound {m['bound_ms']} ms, roofline share "
+          f"{m['roofline_share']}, outputs finite {m['finite']}", flush=True)
+
+
+def dryrun_records(out_dir):
+    """Every cell's record through ``dryrun.main``: ``--all --mesh both``,
+    then ``--all --mesh card`` (the cells that fit measured, from
+    ``SEED``); fails on an error record, and on a measured cell with a
+    non-finite output (gate (a)) or a render cell that launched no field
+    kernel (gate (d)).  Returns the card mesh's records by cell and the
+    render kernels' launches in that run."""
+    from repro_torch.launch import asdr_steps, dryrun
+
+    dryrun.main(["--all", "--mesh", "both", "--out", str(out_dir)])
+    _, launches = path_launches(DRYRUN_RENDER_KERNELS, lambda: dryrun.main(
+        ["--all", "--mesh", "card", "--seed", str(SEED), "--out",
+         str(out_dir)]))
+    errors = sorted(p.name for p in out_dir.glob("*.error.json"))
+    if errors:
+        raise AssertionError(f"[dryrun] error records: {errors}")
+    card = {}
+    for p in sorted(out_dir.glob("*_card.json")):
+        rec = json.loads(p.read_text())
+        if not rec.get("skipped"):
+            card[p.stem.removesuffix("_card")] = rec
+    print(f"[dryrun] {len(list(out_dir.glob('*.json')))} records in "
+          f"{out_dir}; render kernels' launches {launches}", flush=True)
+    for tag, rec in card.items():
+        if rec["measured"] is None:
+            continue
+        dryrun_measured(tag, rec)
+        if not rec["measured"]["finite"]:
+            raise AssertionError(f"[dryrun] gate (a): {tag}'s output is "
+                                 "not finite")
+        missing = [k for k in DRYRUN_RENDER_KERNELS
+                   if not rec["measured"]["launches"].get(k)]
+        if rec["arch"] == "ingp-asdr" and missing:
+            raise AssertionError(f"[dryrun] gate (d): {tag} launched no "
+                                 f"{missing}")
+    for tag in ("ingp-asdr_asdr_render", "ingp-asdr_render_serve"):
+        if card[tag]["measured"] is None:
+            raise AssertionError(f"[dryrun] {tag} was not measured: "
+                                 f"{card[tag].get('not_measured')}")
+    t = card["ingp-asdr_asdr_train"]
+    print(f"[dryrun] asdr_train ({t['rays']} rays x "
+          f"{asdr_steps.TRAIN_SAMPLES} samples): reckoned "
+          f"{t['reckoned_bytes'] / 1e9:.1f} GB against "
+          f"{dryrun.CARD_BYTES / 1e9:.0f}: "
+          + (t["not_measured"] if t["measured"] is None
+             else f"measured {t['measured']['ms']:.1f} ms"), flush=True)
+    return launches
+
+
+def same_march(tag, got, want):
+    """rgb and acc within RTOL / ATOL, chunks and ray_chunks exact, of a
+    march's outputs (rgb, acc, ..., chunks, ray_chunks)."""
+    import torch
+    e_rgb, ok_rgb = max_err(got[0], want[0])
+    e_acc, ok_acc = max_err(got[1], want[1])
+    chunks = bool(torch.equal(got[3], want[3]))
+    rays = bool(torch.equal(got[4], want[4]))
+    print(f"[dryrun] gate (b) {tag}: max_abs_err rgb {e_rgb:.3e} acc "
+          f"{e_acc:.3e}; chunks equal {chunks}, ray_chunks equal {rays} "
+          f"({int((got[4] != want[4]).sum())} rays differ)", flush=True)
+    if not (ok_rgb and ok_acc and chunks and rays):
+        raise AssertionError(f"[dryrun] gate (b): {tag} differs from the "
+                             "plain field")
+
+
+def dryrun_render_gate(dev):
+    """Gate (b): the card mesh's render steps once more on the inputs the
+    tool measured them on (``dryrun.asdr_inputs`` at ``SEED``): asdr_render's
+    first sorted blocks and each pooled block's march against the plain
+    field on the same block."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import model, pipeline
+    from repro_torch.launch import asdr_steps, dryrun
+    from repro_torch.launch import render_serve as rs
+
+    bundle = configs.get("ingp-asdr")
+    mesh = dryrun.make_mesh("card")
+    step_r, args, _ = asdr_steps.build_render_cell(bundle, mesh)
+    step_p, _, _ = rs.build_pooled_march_cell(bundle, mesh)
+    p, o, d, counts = dryrun.asdr_inputs(bundle, "asdr_render", args, SEED,
+                                         dev)
+    po, pd, pb = rs.pooled_blocks(bundle, o, d, counts)
+    rgb, acc, stats = step_r(p, o, d, counts)
+    out_p = step_p(p, po, pd, pb)
+    print(f"[dryrun] ingp-asdr render cells: {o.shape[0]} padded rays "
+          f"({asdr_steps.RENDER_HW[0]}x{asdr_steps.RENDER_HW[1]}), "
+          f"{po.shape[0]} pooled blocks of {po.shape[1]}", flush=True)
+
+    fns_p = model.field_fns(model.NGPField.from_params(bundle.model, p))
+    acfg = dataclasses.replace(bundle.asdr, block_size=asdr_steps.RENDER_BLOCK)
+    n, B = DRYRUN_GATE_BLOCKS, acfg.block_size
+    order, budgets = pipeline.block_sort(acfg, counts)
+    idx = order[:n * B].long()
+    want = pipeline._march_block(fns_p, acfg, o[idx].reshape(n, B, 3),
+                                 d[idx].reshape(n, B, 3), budgets[:n])
+    same_march(f"asdr_render, first {n} sorted blocks (budgets "
+               f"{budgets[:n].tolist()})",
+               (rgb[idx].reshape(n, B, 3), acc[idx].reshape(n, B), None,
+                stats["chunks_per_block"][:n],
+                stats["ray_chunks_per_block"][:n]), want)
+    want = [pipeline._march_block(fns_p, acfg, po[i:i + 1], pd[i:i + 1],
+                                  pb[i:i + 1]) for i in range(po.shape[0])]
+    same_march(f"render_serve, each of {po.shape[0]} pooled blocks "
+               f"(budgets {sorted(set(pb.tolist()))})", out_p,
+               tuple(torch.cat(w) for w in zip(*want)))
+
+
+def dryrun_lm(dev, out_dir):
+    """The LM prefill cell on the flash kernel: the prefill_32k cell whose
+    reckoning at one row is smallest among DRYRUN_LM_FAMILIES, cut to the
+    most rows (up to DRYRUN_MAX_ROWS) that fit; gates (a), (c), (d), then
+    (b): the prefill once more with layers 0 and 1 recorded, each layer's
+    kernel output on the last row held against ``flash_attention_plain``
+    over all its keys."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+
+    shape = dryrun.SHAPES["prefill_32k"]
+
+    def reckon(arch, rows):
+        cell = dataclasses.replace(shape, global_batch=rows)
+        return dryrun.reckon_bytes(dryrun.lm_record(arch, cell, "card")[0])
+
+    archs = [a for a in configs.list_archs()
+             if configs.get(a).family in DRYRUN_LM_FAMILIES]
+    one = {a: reckon(a, 1) for a in archs}
+    print("[dryrun] prefill_32k reckoned on the card at one row (GB): "
+          + ", ".join(f"{a} {v / 1e9:.1f}" for a, v in one.items()),
+          flush=True)
+    arch = min(one, key=one.get)
+    rows = max(r for r in range(1, DRYRUN_MAX_ROWS + 1)
+               if reckon(arch, r) <= dryrun.CARD_BYTES)
+    print(f"[dryrun] LM cell: {arch} prefill_32k at {rows} of "
+          f"{shape.global_batch} rows ({rows} x {shape.seq_len} tokens), "
+          f"reckoned {reckon(arch, rows) / 1e9:.1f} GB", flush=True)
+    (rec, out), launches = path_launches(
+        ("flash_attention",), lambda: dryrun.card_cell(
+            arch, "prefill_32k", rows=rows, seed=SEED, device=dev))
+    write_record(out_dir, f"{arch}_prefill_32k_card_rows{rows}", rec)
+    dryrun_measured(f"{arch} prefill_32k x {rows}", rec)
+    logits = out[0]
+    print(f"[dryrun] logits {tuple(logits.shape)} {logits.dtype}", flush=True)
+    del out, logits
+    m = rec["measured"]
+    cfg = configs.get(arch)
+    want = attention_layers(cfg)
+    if not m["finite"]:
+        raise AssertionError("[dryrun] gate (a): non-finite prefill output")
+    if m["launches"].get("flash_attention") != want:
+        raise AssertionError(f"[dryrun] gate (d): {m['launches']} flash "
+                             f"launches a call, not {want}")
+    if not m["roofline_share"] <= DRYRUN_MAX_SHARE:
+        raise AssertionError(f"[dryrun] gate (c): roofline share "
+                             f"{m['roofline_share']} > {DRYRUN_MAX_SHARE}")
+
+    free_card(dev, "[dryrun]")
+    cell = dataclasses.replace(shape, global_batch=rows)
+    _, _, args, _ = dryrun.lm_record(arch, cell, "card", device=dev)
+    values, batch = dryrun.lm_inputs(cfg, cell, args, SEED, dev)
+    recording, seen = attention_recorder()
+    api = lm.build(cfg, device=dev, attention=recording)
+    api.prefill_fn(values, batch)        # its logits and caches dropped
+    last = [(q[-1:], k[-1:], v[-1:], w, c, o[-1:])
+            for q, k, v, w, c, o in seen]
+    del values, batch, seen
+    check_recorded(f"[dryrun] gate (b): {arch} prefill_32k row {rows - 1}",
+                   last, min(2, want), f"attention over {shape.seq_len} keys")
+    return launches
+
+
+def write_record(out_dir, tag, rec):
+    (out_dir / f"{tag}.json").write_text(json.dumps(rec, indent=1))
+
+
+def run_dryrun(dev, out_dir=DRYRUN_OUT):
+    """The [dryrun] phase; returns its launch counts."""
+    import shutil
+
+    t0 = time.perf_counter()
+    free_card(dev, "[dryrun]")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    launches = dryrun_records(out_dir)
+    dryrun_render_gate(dev)
+    free_card(dev, "[dryrun]")
+    launches.update(dryrun_lm(dev, out_dir))
+    print(f"[dryrun] {card_label(dev)}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def run(dev, bundle, hw, attn, seq, wide, wide_seq, reps=3, train_kw=TRAIN,
         lm_waves=LM_WAVES, lm_max_seq=LM_MAX_SEQ, family_kw=None,
         new_kw=None, lmtrain_kw=None):
-    """Phases 2-13 on ``dev`` at ``bundle``, image size ``hw``, the LM
+    """Phases 2-15 on ``dev`` at ``bundle``, image size ``hw``, the LM
     configs ``attn`` and ``wide`` (their attention widths for phase 5, over
     ``seq`` and ``wide_seq`` tokens; the whole models for ``[lm]``, on
     ``lm_waves``), training ``train_kw``, then the ``[moe]`` and ``[ssm]``
     phases (``run_families(**family_kw)``), ``[vlm]`` and ``[encdec]``
     (``run_vlm`` / ``run_encdec(dev, **new_kw)``), ``[lmtrain]``
-    (``run_lmtrain(dev, **lmtrain_kw)``); returns the kernel rows of the
-    JSON line."""
+    (``run_lmtrain(dev, **lmtrain_kw)``), ``[dryrun]`` (``run_dryrun``);
+    returns the kernel rows of the JSON line."""
     from repro_torch import params
     from repro_torch.core import scene
 
@@ -3450,9 +3708,17 @@ def run(dev, bundle, hw, attn, seq, wide, wide_seq, reps=3, train_kw=TRAIN,
     train_launches = run_lmtrain(dev, **(lmtrain_kw or {}))
     print(f"[lmtrain] flash_attention launches in the training main runs: "
           f"{train_launches}", flush=True)
+    dry_launches = run_dryrun(dev)
+    print(f"[dryrun] launches in the phase's measured runs: {dry_launches}",
+          flush=True)
     rows += [vr_row, fa_row]
     launches.update(**frame_launches, **vr_launches,
-                    flash_attention=sum(lm_launches.values()))
+                    flash_attention=sum(lm_launches.values())
+                    + dry_launches["flash_attention"])
+    names = {r["name"] for r in rows}
+    if len(names) != 7:
+        raise AssertionError(f"[dryrun] gate (d): the kernels line lists "
+                             f"{sorted(names)}")
     for r in rows:
         r["launches"] = launches[r["name"]]
     return rows

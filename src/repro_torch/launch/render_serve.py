@@ -1,21 +1,124 @@
-"""Render-serve launcher: the pooled multi-view render serving engine,
-end to end on analytic scenes over a camera trajectory
-(``repro.launch.render_serve``, its concrete mode):
+"""Render-serve launcher (``repro.launch.render_serve``): pooled
+multi-view Phase-II blocks.
 
+Two modes:
+
+  concrete — run the slot-based render serving engine end to end on
+  analytic scenes over a camera trajectory:
     PYTHONPATH=src python -m repro_torch.launch.render_serve --device cpu \
         --poses 4 --size 24
+  on the CPU; without ``--device`` it runs on the GPU (``cuda``).  The
+  scenes are analytic, so no kernel runs here; ``chip_smoke.py`` drives
+  the engine through the kernel field.
 
-runs on the CPU; without ``--device`` it runs on the GPU (``cuda``).
-The scenes are analytic, so no kernel runs here; ``chip_smoke.py``
-drives the engine through the kernel field.  The reference's dry-run
-(``--dryrun``, ``--multi-pod``: the pooled march compiled on a forced
-production mesh) is not ported.
+  dry-run — the engine's batched march as a production-mesh cell, the
+  pooled block axis sharded over (pod,)data and the NGP params replicated
+  per chip; prints the per-device argument bytes of its specs:
+    PYTHONPATH=src python -m repro_torch.launch.render_serve --dryrun \
+        [--multi-pod]
+  It touches no device.
+
+The pooled march is the serving engine's inner loop lifted to the mesh:
+blocks pooled from ALL live requests form one (pool_blocks, block, 3)
+batch whose leading axis shards over ``data`` — every chip marches its
+slice of the pool, so multi-user throughput scales with chips while each
+request's blocks stay difficulty-sorted (budget-homogeneous slices).
 """
 import argparse
 import dataclasses
 import time
 
 import numpy as np
+
+# pooled blocks per sharded march call; divisible by the 16-wide data axis
+POOL_BLOCKS = 64
+
+
+def build_pooled_march_cell(bundle, mesh, pool_blocks: int = POOL_BLOCKS):
+    """The serving engine's batched march as a production-mesh cell:
+    ``(step, arg_specs, extra)`` as ``launch/asdr_steps.py``'s builders.
+
+    Grid tables replicate per chip (asdr_steps' 'opt' variant — the paper's
+    §5.2.1 replication insight), so marching a pooled block touches no
+    cross-chip collectives; the block axis shards over (pod,)data.  The
+    step marches each block with ``pipeline._march_block``, one after the
+    other, as the reference's ``lax.map`` does, and returns its outputs
+    stacked: (rgb, acc, depth, chunks, ray_chunks).
+    """
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.launch import asdr_steps
+    from repro_torch.launch.mesh import Step
+    from repro_torch.sharding.rules import PartitionSpec as P
+
+    cfg = bundle.model
+    acfg = dataclasses.replace(bundle.asdr,
+                               block_size=asdr_steps.RENDER_BLOCK)
+
+    def march(params, origins, dirs, budgets):
+        fns = asdr_steps.field_fns(params, cfg)
+        outs = [pipeline._march_block(fns, acfg, origins[i:i + 1],
+                                      dirs[i:i + 1], budgets[i:i + 1])
+                for i in range(origins.shape[0])]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    b = asdr_steps._batch_spec(mesh)
+    p_sh = asdr_steps.param_shardings(cfg, mesh, shard_tables=False)
+    blk_sh = P(b, None, None)
+    bud_sh = P(b)
+    B = acfg.block_size
+    args = (
+        asdr_steps.abstract_params(cfg),
+        torch.empty((pool_blocks, B, 3), dtype=torch.float32, device="meta"),
+        torch.empty((pool_blocks, B, 3), dtype=torch.float32, device="meta"),
+        torch.empty((pool_blocks,), dtype=torch.int32, device="meta"),
+    )
+    # lax.map is a scan: the block body appears once in HLO but runs
+    # pool_blocks times — the reference's cost model multiplies by this
+    return Step(march, (p_sh, blk_sh, blk_sh, bud_sh)), args, {
+        "pool_blocks": pool_blocks, "block": B,
+        "rays_per_call": pool_blocks * B, "scan_multiplier": pool_blocks}
+
+
+def pooled_blocks(bundle, origins, dirs, counts, pool_blocks=POOL_BLOCKS):
+    """``pool_blocks`` of a frame's difficulty-sorted blocks, spread evenly
+    over its budget range: (origins, dirs) (pool_blocks, block, 3) and
+    budgets (pool_blocks,), the pooled march cell's inputs."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.launch import asdr_steps
+
+    acfg = dataclasses.replace(bundle.asdr,
+                               block_size=asdr_steps.RENDER_BLOCK)
+    B = acfg.block_size
+    order, budgets = pipeline.block_sort(acfg, counts)
+    pick = torch.linspace(0, budgets.shape[0] - 1, pool_blocks,
+                          device=counts.device).round().long()
+    o_s = origins[order.long()].reshape(-1, B, 3)
+    d_s = dirs[order.long()].reshape(-1, B, 3)
+    return o_s[pick], d_s[pick], budgets[pick]
+
+
+def _dryrun(multi_pod: bool):
+    """The pooled march cell's per-device argument bytes on the production
+    mesh.  There is no lowering or compile to time and no buffer
+    assignment to read temps from: the port has no XLA compiler, its step
+    runs eagerly."""
+    from repro_torch.configs.ingp_asdr import CONFIG as bundle
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    step, args, meta = build_pooled_march_cell(bundle, mesh)
+    arg_bytes = mesh_lib.tree_bytes(args, step.in_specs, mesh)
+    print(f"[render_serve dryrun] mesh={tuple(mesh.shape.items())} "
+          f"pool={meta['pool_blocks']}x{meta['block']} rays/call="
+          f"{meta['rays_per_call']}")
+    print("  lower n/a  compile n/a  (no XLA compiler in the port: the "
+          "step runs eagerly)")
+    print(f"  per-device bytes: args={arg_bytes} temps=n/a peak=n/a "
+          f"(no buffer assignment without a compiler)")
 
 
 def scenecache_smoke(size: int = 16, poses: int = 3, clients: int = 2,
@@ -193,6 +296,11 @@ def _concrete(args):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dryrun", action="store_true",
+                    help="print the pooled march cell's per-device bytes on "
+                         "the production mesh (no device is touched)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --dryrun: the (2, 16, 16) mesh")
     ap.add_argument("--device", default="cuda",
                     help="the device the engine runs on (cuda, or cpu)")
     ap.add_argument("--poses", type=int, default=10)
@@ -269,7 +377,11 @@ def main():
                     help="shard the scene cache N ways (with "
                          "--scenecache-mb; >1 uses the fleet-shared "
                          "ShardedSceneCache routed by key bytes)")
-    _concrete(ap.parse_args())
+    args = ap.parse_args()
+    if args.dryrun:
+        _dryrun(args.multi_pod)
+    else:
+        _concrete(args)
 
 
 if __name__ == "__main__":

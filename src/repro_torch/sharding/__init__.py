@@ -1,4 +1,8 @@
-"""Logical sharding axes on one card (``repro.sharding``, reduced): the
-axes stay on the param trees, ``constrain`` is the identity."""
-from .activation import constrain  # noqa: F401
-from .rules import Axes  # noqa: F401
+"""Logical sharding (``repro.sharding``): the rule tables, ``resolve_spec``
+and ``param_specs`` over logical meshes, and activation constraints, which
+one card resolves and leaves as the identity."""
+from .activation import activation_sharding, constrain  # noqa: F401
+from .rules import (  # noqa: F401
+    DECODE_SP_RULES, LONG_CONTEXT_SERVE_RULES, SERVE_RULES, TRAIN_RULES,
+    Axes, PartitionSpec, Rules, param_specs, resolve_spec,
+)

@@ -901,3 +901,33 @@ def test_checkpoint_of_card_tensors_restores_on_the_card(cuda, tmp_path):
     for a, b in zip(optim.tree_leaves(got), optim.tree_leaves(tree)):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+def test_card_mesh_render_cell_matches_the_plain_field(cuda):
+    """The dry-run's asdr_render cell on the card mesh (a 64x64 frame: one
+    block of 4,096 rays, Phase I counts) renders through the kernel field
+    and matches the plain field's march of the same sorted block: rgb and
+    acc within rtol 1e-4 / atol 1e-5, chunk counters exact."""
+    from repro_torch.launch import asdr_steps, mesh
+    bundle = ingp_asdr.CONFIG
+    field = params.from_jax_params(
+        params.random_params(bundle.model, 8, 30.0), bundle.model,
+        device=cuda)
+    step, _, _ = asdr_steps.build_render_cell(bundle, mesh.make_card_mesh())
+    cam = scene.look_at_camera(64, 64, theta=0.9, phi=0.55)
+    fns = ops.field_fns(field)
+    o, d, counts = asdr_steps.render_inputs(fns, bundle, cam, device=cuda)
+    ops.reset_launch_counts()
+    rgb, acc, stats = step(field.params(), o, d, counts)
+    assert all(ops.launch_counts()[k] > 0
+               for k in ("hash_encode", "density_mlp", "color_mlp"))
+    acfg = dataclasses.replace(bundle.asdr,
+                               block_size=asdr_steps.RENDER_BLOCK)
+    order, budgets = pipeline.block_sort(acfg, counts)
+    order = order.long()
+    want = pipeline._march_block(model.field_fns(field), acfg,
+                                 o[order][None], d[order][None], budgets)
+    torch.testing.assert_close(rgb[order], want[0][0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(acc[order], want[1][0], rtol=1e-4, atol=1e-5)
+    assert torch.equal(stats["chunks_per_block"], want[3])
+    assert torch.equal(stats["ray_chunks_per_block"], want[4])
