@@ -144,7 +144,19 @@ root of a checkout, on a machine with one NVIDIA H100.
    samples within 0.1 %, PSNR against ground truth within 0.1 dB; (e)
    with the block store alone, a second viewer replaying the first's
    ``SERVE_REPLAY_POSES`` poses marches nothing and gets its frames bit
-   for bit.
+   for bit; (f) the full configuration with Stage A placed by a
+   ``DeviceExecutor`` (``devices`` > 0): on ``cuda:1`` .. where the host
+   has them, else on the engine's own card through the
+   ``executor._available_devices`` hook, and then every Stage A runs on a
+   replica of its field built on the card (``core.fields.Replicas``: the
+   tables, resources and packed weights copied); frames and counters
+   bit-identical to the prefetch-2 run, the placements and replicas
+   printed; (g) two such engine replicas over one ``ShardedSceneCache``
+   (``SERVE_FLEET_SHARDS`` shards of ``SERVE_FLEET_STORE_BYTES``), the
+   second replaying the first's ``SERVE_REPLAY_POSES`` poses of all
+   three viewers with every other tier off: each frame bit-equal to a
+   plain sync engine's, the second replica's block hits above 0, every
+   shard within its budget.
 
 9. ``[lm]``: gemma2-27b (``configs/gemma2_27b.py`` CONFIG, 46 layers,
    d_model 4,608, 32 heads over 16 KV x 128, d_ff 36,864, vocab 256,000)
@@ -1606,6 +1618,8 @@ SERVE_VIEWERS = ("lego", "lego", "random")
 SERVE_STORE_BYTES = 32 << 20
 SERVE_REPLAY_POSES = 4          # gate (e): two viewers replay these
 SERVE_WIDE_BATCH = 64           # one extra reading, blocks of 64 a batch
+SERVE_FLEET_STORE_BYTES = 256 << 20   # gate (g): holds every frame's blocks
+SERVE_FLEET_SHARDS = 4
 SERVE_FLAGS = ("probe_reused", "probe_skipped", "radiance_reused")
 SERVE_READINGS = (
     "latency_ms_p50", "latency_ms_p99", "admit_stall_ms_p50",
@@ -1680,6 +1694,71 @@ def serve_run(fields, acfg, rcfg, reqs, dev, trace=False):
         eng.close()
 
 
+def stage_a_cards(dev):
+    """(cards, one_card, restore): the secondary cards a DeviceExecutor
+    places Stage A on — ``cuda:1`` .. where the host has them, else the
+    engine's own card through the ``executor._available_devices`` hook —
+    and the function that restores the hook."""
+    from repro_torch.serve import executor as executor_lib
+    real = executor_lib._available_devices
+    cards = real()[1:]
+    if cards:
+        return cards, False, lambda: None
+    card = executor_lib.indexed(dev)
+    executor_lib._available_devices = lambda: [card, card]
+    return [card], True, lambda: setattr(executor_lib,
+                                         "_available_devices", real)
+
+
+def placed_serve(fields, acfg, rcfg, reqs, dev, one_card, scenecache=None):
+    """``serve_run`` through a DeviceExecutor (``rcfg.devices`` > 0), each
+    Stage A's placement recorded.  On one card every Stage A runs on a
+    replica of its field built there: the engine's own card would use the
+    fields themselves, so the replicas' home is named off the card.
+    Returns ({rid: request}, engine_stats, wall ms, [(placement, current
+    card)] of each prepare, {(scene, card): replica})."""
+    import threading
+    import torch
+    from repro_torch.serve import RenderServingEngine, admission
+    from repro_torch.serve import executor as executor_lib
+
+    seen, lock = [], threading.Lock()
+    real = admission.prepare
+
+    def recording(engine, req):
+        with lock:
+            seen.append((executor_lib.placement(),
+                         torch.cuda.current_device()
+                         if torch.cuda.is_available() else None))
+        return real(engine, req)
+
+    eng = RenderServingEngine(fields, acfg, rcfg, device=dev,
+                              scenecache=scenecache)
+    if not isinstance(eng.executor, executor_lib.DeviceExecutor):
+        raise AssertionError(f"[serve] devices={rcfg.devices} gave a "
+                             f"{type(eng.executor).__name__}")
+    if one_card:
+        eng.replicas.device = torch.device("meta")
+    admission.prepare = recording
+    try:
+        done, ms = host_ms(lambda: eng.render(reqs), dev)
+        return ({r.rid: r for r in done}, eng.engine_stats(), ms, seen,
+                dict(eng.replicas.built))
+    finally:
+        admission.prepare = real
+        eng.close()
+
+
+def placements(seen) -> dict:
+    """{placement card (or "engine thread"): prepares} of a placed run."""
+    out = {}
+    for placed, current in seen:
+        tag = (f"{placed} (current cuda:{current})" if placed is not None
+               else "engine thread, unplaced")
+        out[tag] = out.get(tag, 0) + 1
+    return out
+
+
 def serve_reading(tag, done, st, ms):
     sc = st.get("scenecache") or {}
     print(f"[serve] {tag}: {len(done)} frames in {ms:.1f} ms "
@@ -1705,7 +1784,7 @@ def same_serving(a, b, st_a, st_b) -> bool:
 def run_serve(field_t, scene_t, field_r, bundle, dev, hw):
     """The render serving engine through the kernel path: the traffic's
     readings, the same requests one by one through render_asdr_image, then
-    gates (a)-(e).  Returns the serve run's launches."""
+    gates (a)-(g).  Returns the serve run's launches."""
     import dataclasses
     import json
     import numpy as np
@@ -1914,6 +1993,8 @@ def run_serve(field_t, scene_t, field_r, bundle, dev, hw):
                              "its frames differ")
     del alone, both
 
+    run_serve_fleet(fields, acfg, full, (done, st), cams, dev, hw)
+
     # device time by kernel, Stage A inline and on two worker streams
     for workers in (0, 2):
         report_device_time(
@@ -1923,6 +2004,89 @@ def run_serve(field_t, scene_t, field_r, bundle, dev, hw):
             overlap_of="fused_march")
     print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+def run_serve_fleet(fields, acfg, full, ref, cams, dev, hw):
+    """[serve]'s gates (f) and (g): the full configuration's traffic with
+    Stage A placed by a DeviceExecutor against ``ref`` (the prefetch-2
+    run's frames and stats), then two placed engine replicas over one
+    ShardedSceneCache against a plain sync engine."""
+    import dataclasses
+    import numpy as np
+    done, st = ref
+
+    # (f) Stage A placed by a DeviceExecutor, on replicas of the fields
+    cards, one_card, restore = stage_a_cards(dev)
+    try:
+        f_cfg = dataclasses.replace(full, devices=len(cards))
+        (f_done, f_st, f_ms, seen, built), f_launches = path_launches(
+            FRAME_KERNELS, lambda: placed_serve(
+                fields, acfg, f_cfg, serve_requests(cams), dev, one_card))
+        serve_reading(f"full, Stage A placed on {[str(c) for c in cards]}",
+                      f_done, f_st, f_ms)
+        copies = {f"{sc} on {c}": r.fused is not None and (
+            r.fused.tables.data_ptr() != fields[sc].fused.tables.data_ptr())
+            for (sc, c), r in built.items()}
+        f_same = same_serving(done, f_done, st, f_st)
+        print(f"[serve] gate (f): {len(seen)} Stage A runs, "
+              f"{sum(p is not None for p, _ in seen)} placed: "
+              f"{placements(seen)}; replicas built (own copy of the tables): "
+              f"{copies}; launches {f_launches}; bit-identical frames and "
+              f"counters against the prefetch-2 run: {f_same}"
+              + (" (one card: placed on the engine's own card, no copy "
+                 "between cards)" if one_card else ""), flush=True)
+        if not (f_same and any(p is not None for p, _ in seen)
+                and all(p is None or p in cards for p, _ in seen)
+                and (not one_card or (len(built) == len(fields)
+                                      and all(copies.values())))):
+            raise AssertionError("[serve] gate (f): the placed run differs "
+                                 "or placed nothing")
+        del f_done, seen, built
+
+        # (g) two engine replicas over one ShardedSceneCache
+        from repro_torch.scenecache import SceneCacheConfig, ShardedSceneCache
+
+        def replica_requests(k):
+            reqs = serve_requests(serve_cams(hw, SERVE_REPLAY_POSES))
+            for r in reqs:
+                r.rid += 100 * k
+            return reqs
+
+        g_reqs = replica_requests(0)
+        plain_g, _, plain_ms, _ = serve_run(fields, acfg, serve_config(
+            False), g_reqs, dev)
+        shared = ShardedSceneCache(SceneCacheConfig(
+            byte_budget=SERVE_FLEET_STORE_BYTES), shards=SERVE_FLEET_SHARDS)
+        g_cfg = serve_config(False, prefetch=2, devices=len(cards))
+        try:
+            reps, g_launches = path_launches(FRAME_KERNELS, lambda: [
+                placed_serve(fields, acfg, g_cfg, replica_requests(k), dev,
+                             one_card, scenecache=shared)
+                for k in range(2)])
+            sst = shared.stats()
+        finally:
+            shared.close()
+        g_equal = all(np.array_equal(r.image, plain_g[rid % 100].image)
+                      for rep in reps for rid, r in rep[0].items())
+        hits = [rep[1]["scene_block_hits"] for rep in reps]
+        within = all(b <= sst["per_shard_budget"]
+                     for b in sst["per_shard_resident_bytes"])
+        for k, rep in enumerate(reps):
+            serve_reading(f"fleet replica {k}", *rep[:3])
+        print(f"[serve] gate (g): two replicas ({len(g_reqs)} requests "
+              f"each, Stage A placed on {[str(c) for c in cards]}) over one "
+              f"ShardedSceneCache of {SERVE_FLEET_SHARDS} shards: every frame "
+              f"bit-equal to a plain sync engine's ({plain_ms:.1f} ms): "
+              f"{g_equal}; block hits by replica {hits}; per-shard bytes "
+              f"{sst['per_shard_resident_bytes']} against "
+              f"{sst['per_shard_budget']} each; evictions "
+              f"{sst['evictions']}; launches {g_launches}", flush=True)
+        if not (g_equal and hits[1] > 0 and within):
+            raise AssertionError(f"[serve] gate (g): frames equal {g_equal},"
+                                 f" hits {hits}, within budget {within}")
+        del reps, plain_g
+    finally:
+        restore()
 
 
 def run_decoupled(field, bundle, cam, ref, dev, reps=3):

@@ -83,10 +83,13 @@ def query_field(params: Dict, cfg: NGPConfig, points, dirs):
 def param_fns(params: Dict, cfg: NGPConfig):
     """The plain-torch FieldFns of a params dict (the reference's
     ``field_fns(params, cfg)``)."""
-    from .fields import FieldFns
+    from .fields import FieldFns, replicable
 
-    return FieldFns(density=lambda pts: query_density(params, cfg, pts),
-                    color=lambda geo, dirs: query_color(params, cfg, geo, dirs))
+    return replicable(
+        FieldFns(density=lambda pts: query_density(params, cfg, pts),
+                 color=lambda geo, dirs: query_color(params, cfg, geo, dirs)),
+        lambda device: field_fns(NGPField.from_params(cfg, params)
+                                 .replica(device)))
 
 
 class NGPField(nn.Module):
@@ -120,6 +123,16 @@ class NGPField(nn.Module):
     def color_weights(self):
         return [getattr(self, f"color_{i}") for i in range(self.n_color)]
 
+    def replica(self, device) -> "NGPField":
+        """A copy of this field on ``device`` (``Module.to`` would move
+        this one)."""
+        def copy(t):
+            return t.to(device, copy=True)
+
+        return NGPField(self.cfg, copy(self.grid),
+                        [copy(w) for w in self.density_weights],
+                        [copy(w) for w in self.color_weights])
+
     def params(self) -> Dict:
         """The reference's params layout over this module's buffers."""
         return {"grid": self.grid,
@@ -136,9 +149,13 @@ class NGPField(nn.Module):
 
 def field_fns(field: NGPField):
     """The plain-torch FieldFns of a field."""
-    from .fields import FieldFns
+    from .fields import FieldFns, replicable
 
-    return FieldFns(density=field.query_density, color=field.query_color)
+    def density(points):
+        return field.query_density(points)
+
+    return replicable(FieldFns(density=density, color=field.query_color),
+                      lambda device: field_fns(field.replica(device)))
 
 
 def render_fixed(field: NGPField, origins, dirs, n_samples: int,

@@ -269,24 +269,30 @@ def execute_probe_plan(fns: FieldFns, acfg: ASDRConfig, cam,
                        plan: ProbePlan, probe_jitter=None,
                        rcfg: ProbeReuseConfig | None = None,
                        device=None) -> ProbeMaps:
-    """Run the device work the plan calls for.  Pure, and touches only
-    the plan's snapshot (never the live entry) — dispatchable on a worker
-    thread while an earlier march is still in flight."""
+    """Run the device work the plan calls for on ``device``.  Pure, and
+    touches only the plan's snapshot (never the live entry) —
+    dispatchable on a worker thread while an earlier march is still in
+    flight; a snapshot on another device (the cache's card, under a
+    Stage A placed elsewhere) is copied to ``device`` first."""
     with trace_lib.span("probe.execute", kind=plan.kind, mode=plan.mode):
         if plan.kind in ("fresh", "refresh"):
             return _fresh_probe(fns, acfg, cam, probe_jitter, device)
+        src = plan.src_maps
+        if device is not None:
+            src = ProbeMaps(*(None if t is None else t.to(device)
+                              for t in (src.counts, src.opacity, src.depth)),
+                            src.cost)
         if plan.mode == "exact":
-            return dataclasses.replace(plan.src_maps, cost=0)
+            return dataclasses.replace(src, cost=0)
         if plan.mode == "warp":
-            return _warped_maps(plan.src_maps, plan.src_cam, cam, acfg,
-                                rcfg)
+            return _warped_maps(src, plan.src_cam, cam, acfg, rcfg)
         counts = adaptive.dilate_count_map(
-            plan.src_maps.counts, (cam.height, cam.width), plan.radius,
+            src.counts, (cam.height, cam.width), plan.radius,
             border_fill=acfg.ns_full)
         # depth=None: the entry's depth is in the CACHED pose's pixel
         # grid and this mode (by definition) does not warp — see
         # ProbeMaps docstring
-        return ProbeMaps(counts, plan.src_maps.opacity, None, 0)
+        return ProbeMaps(counts, src.opacity, None, 0)
 
 
 def commit_probe_plan(cache: ProbeCache | None, cam, acfg: ASDRConfig,

@@ -166,17 +166,20 @@ class RadiancePlan:
 
 
 def plan_lookup(cache: RadianceCache | None, cam, acfg: ASDRConfig,
-                prepared: RadiancePlan | None = None) -> RadiancePlan:
+                prepared: RadiancePlan | None = None,
+                device=None) -> RadiancePlan:
     """Decide (and, for hits, execute) the warp for this pose.  Pure:
     mutates nothing — re-run at admission to revalidate, where a still-
-    matching ``prepared`` plan donates its warped arrays.
+    matching ``prepared`` plan donates its warped arrays.  With
+    ``device`` the warp runs there, on a copy of the entry's frame (a
+    Stage A placed on another card than the cache's).
 
     Thread contract: the entry state (arrays + version) is snapshotted
     atomically under the cache lock; the warp itself — the expensive
     device work — runs OUTSIDE the lock on the snapshot, so worker-thread
     speculation never serializes against engine-thread commits."""
     with trace_lib.span("radiance.plan") as sp:
-        plan = _plan_lookup(cache, cam, acfg, prepared)
+        plan = _plan_lookup(cache, cam, acfg, prepared, device)
         if sp is not trace_lib.NULL_SPAN:
             sp.attrs["kind"] = plan.kind
             if plan.reason is not None:
@@ -184,7 +187,7 @@ def plan_lookup(cache: RadianceCache | None, cam, acfg: ASDRConfig,
         return plan
 
 
-def _plan_lookup(cache, cam, acfg, prepared=None) -> RadiancePlan:
+def _plan_lookup(cache, cam, acfg, prepared=None, device=None) -> RadiancePlan:
     if cache is None:
         return RadiancePlan("miss", "no_match")
     with cache.lock:
@@ -201,6 +204,9 @@ def _plan_lookup(cache, cam, acfg, prepared=None) -> RadiancePlan:
         src_rgb, src_acc, src_depth = entry.rgb, entry.acc, entry.depth
         src_cam = entry.cam
         mark_stream_use(src_rgb, src_acc, src_depth)
+    if device is not None:
+        src_rgb, src_acc, src_depth = (
+            t.to(device) for t in (src_rgb, src_acc, src_depth))
     if (prepared is not None and prepared.warped is not None
             and prepared.basis == basis):
         warped = prepared.warped

@@ -31,7 +31,7 @@ import torch
 
 from ..core import mlp as mlp_lib
 from ..core import rendering, scene
-from ..core.fields import FieldFns
+from ..core.fields import FieldFns, replicable
 from . import _build
 from . import flash_attention as FA
 from . import fused_march as FMA
@@ -192,7 +192,10 @@ def field_fns(field) -> FieldFns:
     def color(geo, dirs):
         return color_mlp(geo, dirs, res.color, cfg.net)
 
-    return FieldFns(density=density, color=color, fused=res)
+    # a replica: the field copied to the device, its resources and packed
+    # weights made there
+    return replicable(FieldFns(density=density, color=color, fused=res),
+                      lambda device: field_fns(field.replica(device)))
 
 
 # the LM's prefill self-attention (``models/lm.py`` builds on it)

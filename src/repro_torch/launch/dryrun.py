@@ -68,6 +68,7 @@ from . import roofline
 # and whisper (decoder context is architecturally bounded).
 LONG_OK = {"gemma2-27b", "gemma3-12b", "mamba2-780m", "hymba-1.5b"}
 ASDR_SHAPES = ("asdr_render", "asdr_train", "render_serve")
+LOGIT_BYTES = 4                 # float32 logits (models/transformer.unembed)
 # what one card may hold of a cell's reckoned bytes (80 GB less headroom
 # for the allocator and the CUDA context)
 CARD_BYTES = 70e9
@@ -316,14 +317,19 @@ def reckon_bytes(record, bundle=None) -> float:
     """What one card must hold for the cell, by reckoning: its argument
     bytes plus, for an LM cell, the analytic activation, logits and cache
     terms (``cell_hbm_bytes``: traffic over all layers, so more than the
-    live set), for an ingp-asdr cell ``asdr_steps.working_bytes``."""
+    live set) with the logits at float32, for an ingp-asdr cell
+    ``asdr_steps.working_bytes``.  No bound: a cell may peak above it."""
     args = record["memory"]["argument_bytes"]
     if record["arch"] == "ingp-asdr":
         return float(args) + asdr_steps.working_bytes(
             bundle, record["shape"], record)
     an = record["analytic"]
-    return float(args + an["activation_bytes"] + an["logits_bytes"]
-                 + an["cache_bytes"])
+    logits = an["logits_bytes"]
+    if SHAPES[record["shape"]].kind != "train":
+        # the analytic model counts a served cell's logits at bf16 (2 B);
+        # the port's ``unembed`` keeps them float32
+        logits *= LOGIT_BYTES / 2
+    return float(args + an["activation_bytes"] + logits + an["cache_bytes"])
 
 
 def _on(tree, dev):
@@ -537,6 +543,7 @@ def summary(rec) -> str:
         share, peak = m["roofline_share"], m["peak_bytes"]
         line += (f"; measured {m['ms']:.1f} ms"
                  + (f", peak {peak / 1e9:.2f} GB" if peak is not None else "")
+                 + f" (reckoned {rec['reckoned_bytes'] / 1e9:.2f} GB)"
                  + (f", roofline share {share:.3f}" if share else ""))
     elif "not_measured" in rec:
         line += f"; not measured: {rec['not_measured']}"

@@ -19,9 +19,13 @@ Admission is a two-stage, radiance-first pipeline:
 
 The commit section performs NO device-shape work (no pad/sort, no warp,
 no probe): everything it consumes was produced by Stage-A code paths.
-Stage A runs on the engine's card (``engine.device``); a slot's result
-buffers and the finished frame are host numpy, filled by one copy of
-each collected batch's outputs.
+Stage A runs on the card a ``DeviceExecutor`` placed it on
+(``executor.placement()``), with the fields' replica for that card and
+copies of what it reads from the engine's caches, else on the engine's
+card (``engine.device``); ``take`` hands a placed result to the engine's
+card (``Prepared.to_device``), so Stage B and the march see only tensors
+there.  A slot's result buffers and the finished frame are host numpy,
+filled by one copy of each collected batch's outputs.
 ``commit_active()`` exposes that window for test instrumentation.
 
 Ordering is radiance-FIRST: the radiance lookup runs before Phase I, so
@@ -84,9 +88,10 @@ class RenderServeConfig:
     workers: int = 0
     # Multi-device Stage-A placement (the fleet tier): n > 0 places
     # speculation on up to n SECONDARY cards (cuda:1 .., round-robin per
-    # slot) while the pooled march owns the engine's card.  Takes
-    # precedence over ``workers``; gives the synchronous executor on a
-    # one-card host (executor.make_executor), still on the card.
+    # slot), each with a replica of the fields, while the pooled march
+    # owns the engine's card.  Takes precedence over ``workers``; gives
+    # the synchronous executor on a one-card host (executor.make_executor),
+    # still on the card.
     devices: int = 0
     # Streaming dispatch: up to this many batches launched per scheduling
     # round (pool.dispatch_round) — when the largest-budget scene group
@@ -179,7 +184,36 @@ class Prepared:
             out += [m.counts, m.opacity, m.depth]
         if self.dens_layout is not None:
             out += list(self.dens_layout.rays)
+        w = self.rplan.warped if self.rplan is not None else None
+        if w is not None:
+            out += [w.rgb, w.valid]
         return out
+
+    def to_device(self, device) -> "Prepared":
+        """This speculation with every tensor Stage B and the pool read
+        (the rays of both layouts, the probe maps, the radiance plan's
+        warp) on ``device``; itself when they all lie there."""
+        device = executor_lib.indexed(device)
+        if all(t is None or t.device == device for t in self.tensors()):
+            return self
+
+        def to(t):
+            return None if t is None else t.to(device)
+
+        def lay(layout):
+            return None if layout is None else dataclasses.replace(
+                layout, rays=tuple(to(t) for t in layout.rays))
+
+        rplan, m = self.rplan, self.maps
+        if rplan is not None and rplan.warped is not None:
+            w = rplan.warped
+            rplan = dataclasses.replace(rplan, warped=dataclasses.replace(
+                w, rgb=to(w.rgb), valid=to(w.valid)))
+        if m is not None:
+            m = ProbeMaps(to(m.counts), to(m.opacity), to(m.depth), m.cost)
+        return dataclasses.replace(self, rplan=rplan, maps=m,
+                                   layout=lay(self.layout),
+                                   dens_layout=lay(self.dens_layout))
 
     def block_until_ready(self):
         """Wait for the speculated device buffers: the executor's wait, a
@@ -205,33 +239,35 @@ def prepare(engine, req: RenderRequest) -> Prepared:
     under the cache locks), dispatchable while live requests march."""
     t0 = time.time()
     acfg: ASDRConfig = engine.acfg
+    # the placement card, else the engine's: the fields' replica there,
+    # the cached maps and frames this reads copied there
+    dev = executor_lib.placement() or engine.device
     with trace_lib.span("stage_a.prepare", req=req.rid, scene=req.scene):
         rad = engine.radiance_caches.get(req.scene)
-        rplan = (fc_radiance.plan_lookup(rad, req.cam, acfg)
+        rplan = (fc_radiance.plan_lookup(rad, req.cam, acfg, device=dev)
                  if rad is not None else None)
         pplan = maps = None
         if rplan is None or not rplan.full_hit:
             cache = engine.probe_caches.get(req.scene)
             pplan = fc_probe.plan_probe(cache, req.cam, acfg)
             maps = fc_probe.execute_probe_plan(
-                engine.fields[req.scene], acfg, req.cam, pplan,
-                engine._probe_key(req),
+                engine.replicas.on(req.scene, dev), acfg, req.cam, pplan,
+                engine._probe_key(req, dev),
                 rcfg=cache.rcfg if cache is not None else None,
-                device=engine.device)
+                device=dev)
         warped = rplan.warped if (rplan is not None
                                   and rplan.kind == "hit") else None
         tier = req.tier
         scale = scheduler_lib.budget_scale_for(req)
         with trace_lib.span("stage_a.layout", req=req.rid, tier=tier):
             layout = pool_lib.build_layout(acfg, req.cam, maps, warped,
-                                           budget_scale=scale,
-                                           device=engine.device)
+                                           budget_scale=scale, device=dev)
             dens_layout = None
             if (engine.rcfg.density_refresh and warped is not None
                     and maps is not None):
                 dens_layout = pool_lib.build_density_layout(
                     acfg, req.cam, maps, warped, budget_scale=scale,
-                    device=engine.device)
+                    device=dev)
     return Prepared(req, rplan, pplan, maps, layout,
                     _radiance_token(rplan), time.time() - t0, dens_layout,
                     tier=tier)

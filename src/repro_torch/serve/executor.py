@@ -34,8 +34,9 @@ engine's stream wait on that event and ``record_stream``-s the result's
 tensors to the engine's stream, so the caching allocator cannot hand a
 buffer the worker allocated to the worker's stream again while engine
 work that reads it is still queued.  ``DeviceExecutor`` places each
-speculation on a secondary card (``cuda:1`` ..) with that card current
-and a stream of that card's own.
+speculation on a secondary card (``cuda:1`` ..) with that card current,
+a stream of that card's own, and the card named by ``placement()``;
+``take`` copies the result to the engine's card.
 """
 from __future__ import annotations
 
@@ -53,6 +54,25 @@ def _available_devices() -> List[torch.device]:
     """The CUDA device list (module hook so tests can model single- and
     multi-device hosts)."""
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+_placed = threading.local()
+
+
+def placement() -> Optional[torch.device]:
+    """The device this thread's Stage-A closure was placed on by a
+    ``DeviceExecutor``; None where no placement was made (sync, threaded,
+    a stolen take on the engine thread), which means the engine's card."""
+    return getattr(_placed, "device", None)
+
+
+def indexed(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names this thread's
+    current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class SyncExecutor:
@@ -104,16 +124,22 @@ def _device_tensors(out) -> List[torch.Tensor]:
         t for t in tensors() if t is not None and t.is_cuda]
 
 
-def _handover(out, event):
+def _handover(out, event, device=None):
     """Make a worker's result safe on the engine's streams: each stream
     that will read it waits on the worker's event, and each tensor is
-    recorded as in use there (``record_stream``)."""
+    recorded as in use there (``record_stream``).  With ``device`` (the
+    engine's card), a result that lies elsewhere is then copied there
+    (``out.to_device``): the copy runs on the placing card's current
+    stream, which is the stream waited on and recorded, and the engine's
+    stream waits on the copy."""
     for t in _device_tensors(out):
         stream = torch.cuda.current_stream(t.device)
         if event is not None:
             stream.wait_event(event)
         t.record_stream(stream)
-    return out
+    if device is None or not hasattr(out, "to_device"):
+        return out
+    return out.to_device(device)
 
 
 class _FutureExecutor:
@@ -127,6 +153,8 @@ class _FutureExecutor:
     for a busy worker — the engine must never stall behind speculation
     it could execute itself.
     """
+
+    device = None     # the engine's card: where ``take`` hands results
 
     def __init__(self):
         self._futs: Dict[object, Tuple[Future, Callable]] = {}
@@ -157,7 +185,7 @@ class _FutureExecutor:
         # speculation is not keeping ahead of admission
         with trace_lib.span("executor.take", backend=self.backend,
                             stolen=False):
-            return _handover(*fut.result())
+            return _handover(*fut.result(), device=self.device)
 
     def pending(self) -> int:
         return len(self._futs)
@@ -269,29 +297,35 @@ class ThreadedExecutor(_FutureExecutor):
 class DeviceExecutor(_FutureExecutor):
     """Multi-device Stage-A execution: speculation on secondary devices.
 
-    Placement rule: the pooled march owns the engine's card — Stage-A
-    closures run on the SECONDARY devices (``cuda:1`` .. by default),
-    round-robin per submitted slot, each device backed by its own
-    single-thread queue and a stream of its own, with that device
-    current (``torch.cuda.device``).  A closure's tensors go where it
-    puts them: the render engine's ``prepare`` names the engine's card,
-    so its probes stay there until fields are replicated across cards
-    (the fleet lane).  A CPU device runs closures on its thread alone.
+    Placement rule: the pooled march owns the engine's card (``device``)
+    — Stage-A closures run on the SECONDARY devices (``cuda:1`` .. by
+    default), round-robin per submitted slot, each device backed by its
+    own single-thread queue and a stream of its own, with that device
+    current (``torch.cuda.device``) and named by ``placement()``, which
+    the render engine's ``prepare`` reads: it probes, warps and lays out
+    there with the fields' replica for that device, and copies what it
+    reads from the engine's caches there first.  ``take`` waits on the
+    worker's event and copies the result to ``device``, so Stage B and
+    the march see only tensors on the engine's card; a copy or a replica
+    that fails raises from ``take``, nothing falls back to the engine's
+    card (``device`` None leaves results where they were made).  A CPU
+    device runs closures on its thread alone.
 
     A stolen ``take`` (speculation still queued when the engine needs
-    it) runs inline on the engine thread, exactly like the sync backend
-    — placement is best-effort under load, never a stall.
+    it) runs inline on the engine thread, unplaced, exactly like the sync
+    backend — placement is best-effort under load, never a stall.
     """
 
     backend = "device"
 
-    def __init__(self, devices: Optional[List] = None):
+    def __init__(self, devices: Optional[List] = None, device=None):
         super().__init__()
         if devices is None:
             devices = _available_devices()[1:]
         if not devices:
             raise ValueError("DeviceExecutor needs at least one device")
         self.devices = [torch.device(d) for d in devices]
+        self.device = None if device is None else torch.device(device)
         self.workers = len(self.devices)
         self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                          for d in self.devices]
@@ -307,10 +341,14 @@ class DeviceExecutor(_FutureExecutor):
         # records the per-device queue that executed it
         with trace_lib.span("executor.run", backend=self.backend,
                             device=str(dev)):
-            if dev.type != "cuda":
-                return _run_on_stream(None, fn)
-            with torch.cuda.device(dev):
-                return _run_on_stream(self._streams[i], fn)
+            _placed.device = dev
+            try:
+                if dev.type != "cuda":
+                    return _run_on_stream(None, fn)
+                with torch.cuda.device(dev):
+                    return _run_on_stream(self._streams[i], fn)
+            finally:
+                _placed.device = None
 
     def _spawn(self, key, fn: Callable) -> Future:
         i = self._rr % len(self.devices)
@@ -328,17 +366,17 @@ def make_executor(workers: int, devices: int = 0, device=None):
     ``device``.
 
     ``devices=n > 0`` asks for Stage-A placement on up to n secondary
-    cards.  A one-card host has no secondary card to place on, so the
-    config gives the bit-identical SyncExecutor instead of failing — which
-    still runs every closure on the engine's card, inline on the engine
-    thread (nothing moves to the CPU).  Otherwise ``workers=n > 0``
-    selects the ThreadedExecutor (n streams on ``device``); the default
-    is synchronous.
+    cards, handed back to ``device``.  A one-card host has no secondary
+    card to place on, so the config gives the bit-identical SyncExecutor
+    instead of failing — which still runs every closure on the engine's
+    card, inline on the engine thread (nothing moves to the CPU).
+    Otherwise ``workers=n > 0`` selects the ThreadedExecutor (n streams
+    on ``device``); the default is synchronous.
     """
     if devices > 0:
         avail = _available_devices()
         if len(avail) > 1:
-            return DeviceExecutor(avail[1:1 + devices])
+            return DeviceExecutor(avail[1:1 + devices], device=device)
         return SyncExecutor()
     return (ThreadedExecutor(workers, device=device) if workers > 0
             else SyncExecutor())

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..core.fields import FieldFns
+from ..core.fields import FieldFns, Replicas
 from ..core.pipeline import ASDRConfig
 from ..framecache.probe import ProbeCache, ProbeMaps, ProbeReuseConfig
 from ..framecache.radiance import RadianceCache, RadianceReuseConfig
@@ -64,7 +64,9 @@ class RenderServingEngine:
         self.fields = fields
         self.acfg = acfg
         self.rcfg = rcfg
-        self.device = resolve_device(device)
+        self.device = executor_lib.indexed(resolve_device(device))
+        # the fields on each card Stage A is placed on (core/fields.py)
+        self.replicas = Replicas(fields, self.device)
         self.probe_caches: Dict[str, ProbeCache] = {
             name: ProbeCache(rcfg.reuse) for name in fields
         } if rcfg.reuse is not None else {}
@@ -115,9 +117,9 @@ class RenderServingEngine:
             trace_lib.uninstall(self.tracer)
             self.tracer = None
 
-    def _probe_key(self, req: RenderRequest):
+    def _probe_key(self, req: RenderRequest, device=None):
         return admission.probe_jitter_for(self.rcfg, req, self.acfg,
-                                          self.device)
+                                          device or self.device)
 
     def _march_for(self, scene_id: str, density_only: bool = False):
         return pool_lib.batched_march(self.fields[scene_id], self.acfg,

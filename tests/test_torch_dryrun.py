@@ -486,3 +486,34 @@ def test_reckoning():
         dryrun.SHAPES["prefill_32k"], global_batch=1), "card",
         api=_record_api("hymba-1.5b"))[0]
     assert dryrun.reckon_bytes(one) < dryrun.CARD_BYTES
+
+
+@pytest.mark.parametrize("arch, shape", [
+    ("gemma2-27b", "prefill_32k"), ("hymba-1.5b", "decode_32k"),
+    ("hymba-1.5b", "train_4k")])
+def test_reckoning_counts_float32_logits(arch, shape, monkeypatch):
+    """At ``SMOKE``, a served LM cell's reckoning counts its logits at
+    B * S * padded_vocab * 4 bytes (the float32 of the port's
+    ``unembed``; S is 1 for decode), a train cell's as the analytic model
+    does; the record's ``analytic`` block stays the reference's
+    ``cell_hbm_bytes``, which counts a served cell's logits at 2 bytes."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.models.config import ShapeCell
+
+    monkeypatch.setattr(dryrun.configs, "get", tconfigs.get_smoke)
+    kind = dryrun.SHAPES[shape].kind
+    cell = ShapeCell(shape, 16, 2, kind)
+    monkeypatch.setitem(dryrun.SHAPES, shape, cell)
+    rec = dryrun.lm_record(arch, cell, "card")[0]
+    jc = jconfigs.get_smoke(arch)
+    an = janalytic.cell_hbm_bytes(jc, JSHAPES[shape].__class__(
+        shape, 16, 2, kind), rec.get("microbatches", 1))
+    assert {k: rec["analytic"][k] for k in an} == an
+    rows = cell.global_batch * (1 if kind == "decode" else cell.seq_len)
+    logits = (rows * jc.padded_vocab * 4 if kind != "train"
+              else an["logits_bytes"])
+    if kind != "train":
+        assert an["logits_bytes"] == rows * jc.padded_vocab * 2
+    assert dryrun.reckon_bytes(rec) == float(
+        rec["memory"]["argument_bytes"] + an["activation_bytes"] + logits
+        + an["cache_bytes"])

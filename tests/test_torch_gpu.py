@@ -485,6 +485,122 @@ def test_serve_worker_streams_are_deterministic(cuda):
     assert np.array_equal(ref_done[0].image, img.cpu().numpy())
 
 
+def _placed_cards(monkeypatch, cuda):
+    """(cards, one_card): ``cuda:1`` .. where the host has them, else the
+    engine's own card through the ``_available_devices`` hook."""
+    from repro_torch.serve import executor as executor_lib
+    cards = executor_lib._available_devices()[1:]
+    if cards:
+        return cards, False
+    card = executor_lib.indexed(cuda)
+    monkeypatch.setattr(executor_lib, "_available_devices",
+                        lambda: [card, card])
+    return [card], True
+
+
+def _smoke_serve_fields(cuda):
+    bundle = ingp_asdr.SMOKE
+    acfg = dataclasses.replace(bundle.asdr, march_backend="fused")
+    return acfg, {name: ops.field_fns(params.from_jax_params(
+        params.random_params(bundle.model, seed, 30.0), bundle.model,
+        device=cuda)) for name, seed in (("a", 8), ("b", 9))}
+
+
+def _smoke_serve_requests(offset=0):
+    from repro_torch.serve import render_engine
+    return [render_engine.RenderRequest(
+        rid=offset + i, scene="ab"[i % 2], cam=scene.look_at_camera(
+            40, 40, theta=0.9 + 0.05 * (i // 2 % 3), phi=0.55))
+        for i in range(12)]
+
+
+def test_serve_stage_a_placed_on_replicas(monkeypatch, cuda):
+    """Stage A through a DeviceExecutor on the kernel field (``devices``
+    > 0): on ``cuda:1`` .. where the host has them, else on the engine's
+    own card with every Stage A on a replica of its field built there
+    (the replicas' home named off the card).  Frames and deterministic
+    counters equal a sync prefetch-2 run's, each placed Stage A ran with
+    its card current, the replicas hold their own copy of the tables, and
+    every tensor a taken speculation hands Stage B lies on the engine's
+    card."""
+    from repro_torch.serve import admission
+    from repro_torch.serve import executor as executor_lib
+    from repro_torch.serve.stats import DETERMINISTIC_COUNTERS
+    acfg, fields = _smoke_serve_fields(cuda)
+    ref_eng = _serve_engine(fields, acfg, cuda, prefetch=2)
+    ref = {r.rid: r for r in ref_eng.render(_smoke_serve_requests())}
+    ref_st = ref_eng.engine_stats()
+    ref_eng.close()
+
+    cards, one_card = _placed_cards(monkeypatch, cuda)
+    eng = _serve_engine(fields, acfg, cuda, prefetch=2, devices=len(cards))
+    assert isinstance(eng.executor, executor_lib.DeviceExecutor)
+    if one_card:
+        eng.replicas.device = torch.device("meta")
+    real_prepare, real_take = admission.prepare, eng.executor.take
+    placed, taken = [], []
+
+    def prepare(engine, req):
+        if executor_lib.placement() is not None:
+            placed.append((executor_lib.placement(),
+                           torch.cuda.current_device()))
+        return real_prepare(engine, req)
+
+    def take(key):
+        out = real_take(key)
+        if out is not None:
+            taken.extend(t.device for t in out.tensors() if t is not None)
+        return out
+
+    monkeypatch.setattr(admission, "prepare", prepare)
+    monkeypatch.setattr(eng.executor, "take", take)
+    done = {r.rid: r for r in eng.render(_smoke_serve_requests())}
+    st, built = eng.engine_stats(), dict(eng.replicas.built)
+    eng.close()
+    for rid in ref:
+        assert np.array_equal(ref[rid].image, done[rid].image), rid
+    for c in DETERMINISTIC_COUNTERS:
+        assert st[c] == ref_st[c], c
+    assert placed and all(p in cards and cur == p.index for p, cur in placed)
+    assert taken and all(d == eng.device for d in taken)
+    assert built and all(
+        r.fused.tables.data_ptr() != fields[sc].fused.tables.data_ptr()
+        and r.fused.tables.device == c for (sc, c), r in built.items())
+
+
+def test_two_serve_replicas_over_one_sharded_store(monkeypatch, cuda):
+    """Two placed engine replicas over one ShardedSceneCache on the kernel
+    field, the second replaying the first's requests: every frame
+    bit-equal to a plain sync engine's, the second replica's blocks from
+    the store, every shard within its budget."""
+    from repro_torch.serve import render_engine
+    acfg, fields = _smoke_serve_fields(cuda)
+    plain = _serve_engine(fields, acfg, cuda, caches=False, prefetch=0)
+    ref = {r.rid: r for r in plain.render(_smoke_serve_requests())}
+    plain.close()
+    cards, _ = _placed_cards(monkeypatch, cuda)
+    shared = scenecache.ShardedSceneCache(
+        scenecache.SceneCacheConfig(byte_budget=8 << 20), shards=4)
+    engines = [render_engine.RenderServingEngine(
+        fields, acfg, render_engine.RenderServeConfig(
+            blocks_per_batch=4, slots=2, reuse=None, radiance=None,
+            devices=len(cards)), scenecache=shared, device=cuda)
+        for _ in range(2)]
+    done = [engines[k].render(_smoke_serve_requests(100 * k))
+            for k in range(2)]
+    hits = engines[1].engine_stats()["scene_block_hits"]
+    st = shared.stats()
+    for eng in engines:
+        eng.close()
+    shared.close()
+    for frames in done:
+        for r in frames:
+            assert np.array_equal(r.image, ref[r.rid % 100].image), r.rid
+    assert hits > 0
+    assert all(b <= st["per_shard_budget"]
+               for b in st["per_shard_resident_bytes"])
+
+
 @pytest.mark.parametrize("n_real", [1, 3, 4])
 def test_padded_batch_rows_equal_an_unpadded_launch(n_real, cuda):
     """The pool pads a partial batch with unit-budget dummy blocks (o = 0,
