@@ -1,0 +1,5 @@
+"""Frames completed over the whole measured window (host clock)."""
+
+
+def read(obs):
+    return obs["frames"] / obs["window_s"]
