@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from ..device import resolve_device
+from ..obs import trace as trace_lib
 from . import adaptive, decouple, rendering, scene
 from .fields import FieldFns
 
@@ -206,6 +207,35 @@ def pad_rays_to_blocks(acfg: ASDRConfig, origins, dirs, counts, opacity=None):
     return origins, dirs, counts, opacity, pad
 
 
+def _sort_blocks(acfg: ASDRConfig, origins, dirs, counts, opacity=None):
+    """Block order and budgets, and the rays gathered into block order:
+    (order, budgets, o_s (N,B,3), d_s (N,B,3))."""
+    B = acfg.block_size
+    order, budgets = block_sort(acfg, counts, opacity)
+    return (order, budgets, origins[order].reshape(-1, B, 3),
+            dirs[order].reshape(-1, B, 3))
+
+
+def _unsort(acfg: ASDRConfig, order, budgets, marched):
+    """The march's block-order outputs back in ray order: (rgb (R,3),
+    acc (R,), stats)."""
+    rgb_s, acc_s, depth_s, chunks, ray_chunks = marched
+    R = order.shape[0]
+    inv = torch.zeros_like(order)
+    inv[order.long()] = torch.arange(R, dtype=order.dtype, device=order.device)
+    inv = inv.long()
+    stats = {
+        "samples_processed": (int(torch.sum(chunks)) * acfg.block_size
+                              * acfg.chunk),
+        "baseline_samples": R * acfg.ns_full,
+        "chunks_per_block": chunks,
+        "ray_chunks_per_block": ray_chunks,
+        "budgets": budgets,
+        "term_depth": depth_s.reshape(R)[inv],
+    }
+    return rgb_s.reshape(R, 3)[inv], acc_s.reshape(R)[inv], stats
+
+
 def render_adaptive(fns: FieldFns, acfg: ASDRConfig, origins, dirs, counts,
                     opacity=None):
     """Phase II: sorted-block adaptive render.
@@ -214,25 +244,35 @@ def render_adaptive(fns: FieldFns, acfg: ASDRConfig, origins, dirs, counts,
     opacity: optional (R,) secondary sort key.  Returns (rgb (R,3),
     acc (R,), stats).
     """
-    R = origins.shape[0]
-    B = acfg.block_size
-    order, budgets = block_sort(acfg, counts, opacity)
-    o_s = origins[order].reshape(-1, B, 3)
-    d_s = dirs[order].reshape(-1, B, 3)
-    rgb_s, acc_s, depth_s, chunks, ray_chunks = march_blocks(
-        fns, acfg, o_s, d_s, budgets)
-    inv = torch.zeros_like(order)
-    inv[order.long()] = torch.arange(R, dtype=order.dtype, device=order.device)
-    inv = inv.long()
-    stats = {
-        "samples_processed": int(torch.sum(chunks)) * B * acfg.chunk,
-        "baseline_samples": R * acfg.ns_full,
-        "chunks_per_block": chunks,
-        "ray_chunks_per_block": ray_chunks,
-        "budgets": budgets,
-        "term_depth": depth_s.reshape(R)[inv],
-    }
-    return rgb_s.reshape(R, 3)[inv], acc_s.reshape(R)[inv], stats
+    order, budgets, o_s, d_s = _sort_blocks(acfg, origins, dirs, counts,
+                                            opacity)
+    return _unsort(acfg, order, budgets,
+                   march_blocks(fns, acfg, o_s, d_s, budgets))
+
+
+def _probe_render(fns: FieldFns, acfg: ASDRConfig, cam, o, d,
+                  probe_jitter=None):
+    """Phase I's render: every ``probe_stride``-th pixel of the camera's
+    rays ``o``/``d`` at full ``ns`` -> (rgb, aux, probe_hw, probes)."""
+    H, W = cam.height, cam.width
+    dev = o.device
+    st = acfg.probe_stride
+    jj, ii = torch.meshgrid(torch.arange(0, H, st, device=dev),
+                            torch.arange(0, W, st, device=dev), indexing="ij")
+    probe_idx = (jj * W + ii).reshape(-1)
+    rgb_full, aux = render_fixed_fns(
+        fns, o[probe_idx], d[probe_idx], acfg.ns_full, probe_jitter,
+        white_background=acfg.white_background)
+    return rgb_full, aux, (jj.shape[0], jj.shape[1]), int(probe_idx.shape[0])
+
+
+def _count_map(acfg: ASDRConfig, cam, rgb_full, aux, probe_hw):
+    """The probes' sample counts, interpolated to every pixel (H*W,)."""
+    pcounts = adaptive.probe_counts(aux["sigmas"], aux["colors"], rgb_full,
+                                    acfg.ns_full, acfg.candidates, acfg.delta)
+    return adaptive.interpolate_counts(pcounts, probe_hw,
+                                       (cam.height, cam.width),
+                                       acfg.candidates, acfg.ns_full)
 
 
 def probe_phase(fns: FieldFns, acfg: ASDRConfig, cam, probe_jitter=None,
@@ -245,20 +285,10 @@ def probe_phase(fns: FieldFns, acfg: ASDRConfig, cam, probe_jitter=None,
     depth (background pinned to FAR)."""
     H, W = cam.height, cam.width
     o, d = scene.camera_rays(cam, device=device)
-    dev = o.device
-    st = acfg.probe_stride
-    jj, ii = torch.meshgrid(torch.arange(0, H, st, device=dev),
-                            torch.arange(0, W, st, device=dev), indexing="ij")
-    probe_idx = (jj * W + ii).reshape(-1)
-    rgb_full, aux = render_fixed_fns(
-        fns, o[probe_idx], d[probe_idx], acfg.ns_full, probe_jitter,
-        white_background=acfg.white_background)
-    pcounts = adaptive.probe_counts(aux["sigmas"], aux["colors"], rgb_full,
-                                    acfg.ns_full, acfg.candidates, acfg.delta)
-    probe_hw = (jj.shape[0], jj.shape[1])
-    counts = adaptive.interpolate_counts(pcounts, probe_hw, (H, W),
-                                         acfg.candidates, acfg.ns_full)
-    probe_cost = int(probe_idx.shape[0]) * acfg.ns_full
+    rgb_full, aux, probe_hw, probes = _probe_render(fns, acfg, cam, o, d,
+                                                    probe_jitter)
+    counts = _count_map(acfg, cam, rgb_full, aux, probe_hw)
+    probe_cost = probes * acfg.ns_full
     if not (return_opacity or return_depth):
         return counts, probe_cost
     opacity = adaptive.interpolate_map(aux["acc"], probe_hw, (H, W))
@@ -273,29 +303,42 @@ def probe_phase(fns: FieldFns, acfg: ASDRConfig, cam, probe_jitter=None,
 def render_asdr_image(fns: FieldFns, acfg: ASDRConfig, cam,
                       probe_jitter=None, device=None):
     """Full two-phase ASDR render of a camera view on ``device`` (the GPU
-    unless ``device="cpu"``).  Returns (image (H,W,3), stats dict)."""
+    unless ``device="cpu"``).  Returns (image (H,W,3), stats dict).
+
+    Traced as ``frame`` with five children in order: ``frame.probe``
+    (the probe render), ``frame.interpolate`` (probe counts and the
+    per-pixel maps), ``frame.sort`` (pad, block sort, gather into block
+    order), ``frame.march`` and ``frame.unsort`` (ray order, stats); on
+    the card each carries its stream time as ``device_ms``."""
     dev = resolve_device(device)
+    timed = dev.type == "cuda"
     H, W = cam.height, cam.width
-    o, d = scene.camera_rays(cam, device=dev)
-    opacity = None
-    if acfg.sort_by_opacity:
-        counts, probe_cost, opacity = probe_phase(
-            fns, acfg, cam, probe_jitter, return_opacity=True, device=dev)
-    else:
-        counts, probe_cost = probe_phase(fns, acfg, cam, probe_jitter,
-                                         device=dev)
-    # ---- Phase II ----
     R = H * W
-    o, d, counts, opacity, _pad = pad_rays_to_blocks(acfg, o, d, counts,
-                                                     opacity)
-    rgb, acc, stats = render_adaptive(fns, acfg, o, d, counts, opacity)
-    img = rgb[:R].reshape(H, W, 3)
-    stats = dict(stats)
-    stats.update(adaptive.compute_savings(counts[:R], acfg.ns_full))
-    stats["counts"] = counts[:R]
-    stats["probe_samples"] = probe_cost
-    stats["phase2_fraction_of_baseline"] = (
-        stats["samples_processed"] / stats["baseline_samples"])
+    with trace_lib.span("frame", pixels=R, device=timed):
+        with trace_lib.span("frame.probe", device=timed):
+            o, d = scene.camera_rays(cam, device=dev)
+            rgb_full, aux, probe_hw, probes = _probe_render(
+                fns, acfg, cam, o, d, probe_jitter)
+        with trace_lib.span("frame.interpolate", device=timed):
+            counts = _count_map(acfg, cam, rgb_full, aux, probe_hw)
+            opacity = (adaptive.interpolate_map(aux["acc"], probe_hw, (H, W))
+                       if acfg.sort_by_opacity else None)
+        # ---- Phase II ----
+        with trace_lib.span("frame.sort", device=timed):
+            o, d, counts, opacity, _pad = pad_rays_to_blocks(acfg, o, d,
+                                                             counts, opacity)
+            order, budgets, o_s, d_s = _sort_blocks(acfg, o, d, counts,
+                                                    opacity)
+        with trace_lib.span("frame.march", device=timed):
+            marched = march_blocks(fns, acfg, o_s, d_s, budgets)
+        with trace_lib.span("frame.unsort", device=timed):
+            rgb, _acc, stats = _unsort(acfg, order, budgets, marched)
+            img = rgb[:R].reshape(H, W, 3)
+            stats.update(adaptive.compute_savings(counts[:R], acfg.ns_full))
+            stats["counts"] = counts[:R]
+            stats["probe_samples"] = probes * acfg.ns_full
+            stats["phase2_fraction_of_baseline"] = (
+                stats["samples_processed"] / stats["baseline_samples"])
     return img, stats
 
 

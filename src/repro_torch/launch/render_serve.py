@@ -342,7 +342,10 @@ def main():
                          "batches-per-round histogram)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace JSON on exit "
-                         "(open at ui.perfetto.dev); enables the tracer")
+                         "(open at ui.perfetto.dev); enables the tracer. "
+                         "Timestamps are on torch.profiler's Unix clock: "
+                         "obs.export.merge_chrome_traces merges it with a "
+                         "torch.profiler export into one timeline")
     ap.add_argument("--trace-jsonl", default=None, metavar="PATH",
                     help="write the raw span log as JSONL on exit")
     ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",

@@ -30,14 +30,15 @@ from .trace import Span
 def chrome_trace(spans: Sequence[Span], t_origin: float = 0.0,
                  dropped: int = 0,
                  replica: Optional[int] = None) -> Dict:
-    """The Chrome trace-event dict for a span list (ts relative to
-    ``t_origin`` so timelines start near zero).
+    """The Chrome trace-event dict for a span list (ts in microseconds
+    after ``t_origin``; ``Tracer.export_origin`` puts them on the Unix
+    clock of ``torch.profiler``'s events).
 
     ``replica`` becomes the Chrome ``pid`` of every event (plus a
     process_name metadata row), reserving the process axis for engine
-    replicas: per-replica exports rebased onto a shared epoch
-    (TraceConfig.replica/epoch) merge into one fleet timeline via
-    ``merge_chrome_traces`` with one process group per replica."""
+    replicas: per-replica exports share the Unix clock and merge into
+    one fleet timeline via ``merge_chrome_traces`` with one process
+    group per replica."""
     pid = 1 if replica is None else int(replica)
     lanes: Dict[str, int] = {}
     events: List[Dict] = []
@@ -70,32 +71,44 @@ def write_chrome_trace(path, spans: Sequence[Span], t_origin: float = 0.0,
 
 
 def merge_chrome_traces(traces: Sequence) -> Dict:
-    """Merge per-replica Chrome trace exports into ONE timeline dict.
+    """Merge Chrome trace exports into ONE timeline dict.
 
-    Inputs are trace dicts or paths to trace files, each as written by
-    ``write_chrome_trace`` with a distinct ``replica`` (pid) and a
-    shared ``epoch`` (so their ts values are already on one clock —
-    this function only concatenates, it never rebases).  Events keep
-    their pid; span/parent ids live under per-pid namespaces, which is
-    how a merged file is read."""
+    Inputs are trace dicts or paths to trace files: per-replica exports
+    as ``write_chrome_trace`` writes them, each with a distinct
+    ``replica`` (pid), and ``torch.profiler`` exports of the same window.
+    Program exports are on the Unix clock already; a profiler export
+    counts its ts from ``baseTimeNanoseconds`` and is moved onto it, and
+    its process rows for devices with no events (it names every device
+    the build knows) are left out.  Events keep their pid; span/parent
+    ids live under per-pid namespaces, which is how a merged file is
+    read."""
     events: List[Dict] = []
     dropped = 0
     seen_pids = set()
+    replicas = set()        # the pids of the program's exports
     for t in traces:
         if not isinstance(t, dict):
             t = json.loads(Path(t).read_text())
-        pids = {e.get("pid") for e in t["traceEvents"]}
+        evs = t["traceEvents"]
+        base_ns = t.get("baseTimeNanoseconds")
+        if base_ns is not None:
+            live = {e.get("pid") for e in evs if e.get("ph") != "M"}
+            evs = [{**e, "ts": e["ts"] + base_ns / 1e3} if "ts" in e else e
+                   for e in evs if e.get("ph") != "M" or e.get("pid") in live]
+        pids = {e.get("pid") for e in evs}
         overlap = pids & seen_pids
         if overlap:
             raise ValueError(f"duplicate replica pid(s) in merge: "
-                             f"{sorted(overlap)} — stamp each replica's "
-                             f"TraceConfig.replica uniquely")
+                             f"{sorted(overlap, key=str)} — stamp each "
+                             f"replica's TraceConfig.replica uniquely")
         seen_pids |= pids
-        events.extend(t["traceEvents"])
+        if base_ns is None:
+            replicas |= pids
+        events.extend(evs)
         dropped += t.get("otherData", {}).get("dropped_spans", 0)
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "otherData": {"dropped_spans": dropped,
-                          "replicas": sorted(seen_pids)}}
+                          "replicas": sorted(replicas)}}
 
 
 def write_span_jsonl(path, spans: Sequence[Span],
@@ -175,45 +188,3 @@ def stall_trigger(threshold_ms: float) -> Callable[[Span], bool]:
     def pred(s: Span) -> bool:
         return s.name == "admission.wait" and s.dur_ms > threshold_ms
     return pred
-
-
-def rate_trigger(name: str, count: int,
-                 window_ms: float) -> Callable[[Span], bool]:
-    """A BURST trigger: fires when the ``count``-th span named ``name``
-    lands within ``window_ms`` of the first of its sliding window.
-
-    Stateful by design: the closure keeps the last ``count`` matching
-    timestamps.  While the owning ``_Trigger`` is disarmed the recorder
-    never calls the predicate, so the window freezes and resumes on
-    ``rearm()`` — still one dump per breach episode."""
-    assert count >= 1
-    times: deque = deque(maxlen=count)
-
-    def pred(s: Span) -> bool:
-        if s.name != name:
-            return False
-        times.append(s.t0)
-        return (len(times) == count
-                and (times[-1] - times[0]) * 1e3 <= window_ms)
-    return pred
-
-
-def evict_storm_trigger(count: int, window_ms: float) -> Callable:
-    """Eviction storm: ``count`` scenecache evictions inside
-    ``window_ms`` — the cache is thrashing (budget too small for the
-    working set, or a scan-shaped workload)."""
-    return rate_trigger("scenecache.evict", count, window_ms)
-
-
-def shed_burst_trigger(count: int, window_ms: float) -> Callable:
-    """Shed burst: ``count`` scheduler degrade steps inside
-    ``window_ms`` — sustained overload, the shed policy is actively
-    trading quality for deadlines."""
-    return rate_trigger("scheduler.shed", count, window_ms)
-
-
-def trigger_path(base, tag: str) -> str:
-    """A trigger's own dump path: ``base`` with ``_tag`` suffixed to the
-    stem, so multiple armed triggers never clobber one file."""
-    p = Path(base)
-    return str(p.with_name(f"{p.stem}_{tag}{p.suffix}"))

@@ -10,8 +10,8 @@ Everything numeric goes through four primitives:
     percentiles over the window (memory O(capacity)), for wall-time
     ledgers of long-running loops.
 
-``Registry`` names metrics, snapshots them as a flat dict, writes
-Prometheus text exposition, and appends JSONL snapshots.
+``Registry`` names metrics, snapshots them as a flat dict, and appends
+JSONL snapshots.
 
 ``percentile`` is the canonical nearest-rank implementation: the
 smallest sample whose cumulative rank covers q% (rank = ceil(q/100*n)).
@@ -64,8 +64,7 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins value (numeric or not; non-numerics are skipped
-    by the Prometheus exposition but kept in dict snapshots)."""
+    """Last-write-wins value (numeric or not)."""
 
     __slots__ = ("value",)
     kind = "gauge"
@@ -190,7 +189,7 @@ class _Named:
 
 
 class Registry:
-    """A named set of metrics with dict / Prometheus / JSONL views.
+    """A named set of metrics with dict / JSONL views.
 
     ``engine_stats()`` is a read of a registry: serve/stats.py publishes
     every stats key as a gauge (``set_value``) next to the engine's
@@ -253,47 +252,6 @@ class Registry:
             return {name: ent.metric.read()
                     for name, ent in self._metrics.items()}
 
-    def prometheus(self) -> str:
-        """Text exposition.  Non-numeric gauges are skipped; dict-valued
-        gauges flatten to ``name{key="k"}`` sample lines; histograms and
-        series emit _count/_sum/quantile samples."""
-        lines = []
-        for name, ent in list(self._metrics.items()):
-            m = ent.metric
-            pname = _prom_name(name)
-            if m.kind in ("counter", "gauge"):
-                v = m.read()
-                if isinstance(v, bool):
-                    v = int(v)
-                if isinstance(v, (int, float)):
-                    lines += [f"# TYPE {pname} {('counter' if m.kind == 'counter' else 'gauge')}",
-                              f"{pname} {v}"]
-                elif isinstance(v, dict):
-                    num = {k: x for k, x in v.items()
-                           if isinstance(x, (int, float))
-                           and not isinstance(x, bool)}
-                    if num:
-                        lines.append(f"# TYPE {pname} gauge")
-                        lines += [f'{pname}{{key="{k}"}} {x}'
-                                  for k, x in num.items()]
-            elif m.kind == "histogram":
-                lines.append(f"# TYPE {pname} histogram")
-                seen = 0
-                for bound, c in zip(m.bounds, m.counts):
-                    seen += c
-                    lines.append(f'{pname}_bucket{{le="{bound:g}"}} {seen}')
-                lines.append(f'{pname}_bucket{{le="+Inf"}} {m.count}')
-                lines.append(f"{pname}_count {m.count}")
-                lines.append(f"{pname}_sum {m.sum}")
-            elif m.kind == "series":
-                lines.append(f"# TYPE {pname} summary")
-                lines.append(f'{pname}{{quantile="0.5"}} '
-                             f'{m.percentile(50.0)}')
-                lines.append(f'{pname}{{quantile="0.99"}} '
-                             f'{m.percentile(99.0)}')
-                lines.append(f"{pname}_count {m.count}")
-        return "\n".join(lines) + "\n"
-
     def jsonl_snapshot(self, path, extra: Optional[Dict] = None):
         """Append one JSON line {ts, **extra, metrics: snapshot()} —
         the periodic form the benches consume."""
@@ -303,8 +261,3 @@ class Registry:
         p.parent.mkdir(parents=True, exist_ok=True)
         with open(p, "a") as f:
             f.write(json.dumps(rec, default=str) + "\n")
-
-
-def _prom_name(name: str) -> str:
-    out = "".join(c if c.isalnum() or c == "_" else "_" for c in name)
-    return out if not out[:1].isdigit() else "_" + out

@@ -23,11 +23,28 @@ frame's lineage — admission -> stage_a -> probe/warp -> pool dispatch
 (req/slot/batch/scene/shard/device ids) each layer stamps on its spans.
 Lane = the recording thread's name (engine / serve-stage-a_* worker /
 serve-dev* device queue / shard-* fetch pools).
+
+Recording follows the profiler too: with no tracer installed, ``span()``
+records into a process-wide tracer for the current profiled window while
+``torch.profiler`` runs (torch's own ``_is_profiler_enabled`` flag, read
+through ``sys.modules`` so this module imports no torch); ``profiled()``
+returns that window's tracer, drained.  A window ends when ``span()``,
+``instant()`` or ``profiled()`` sees the profiler stopped, and the next
+profiled span opens a fresh one.
+
+One clock with the device trace: spans keep ``perf_counter`` for their
+durations, and every export puts them on the Unix-epoch clock that
+``torch.profiler``'s events use (``Tracer.export_origin``).  A span
+opened with ``device=True`` also records a CUDA timing event on the
+current stream at entry and exit (obs/device_timer.py, imported only
+then) and carries ``device_ms``, the stream time between them, once
+drained; off the card it records nothing more.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -53,26 +70,13 @@ class TraceConfig:
     # auto-arm a flight-recorder trigger: dump when an admission stall
     # span exceeds this many milliseconds (None = no auto trigger)
     stall_dump_ms: Optional[float] = None
-    # rate triggers (export.rate_trigger), each one-shot with rearm like
-    # the stall trigger, each dumping to its own suffixed flight path:
-    # an eviction storm is >= count scenecache.evict instants inside
-    # window_ms; a shed burst is the same over scheduler.shed instants.
-    # count 0 = trigger off.
-    evict_storm_count: int = 0
-    evict_storm_window_ms: float = 1000.0
-    shed_burst_count: int = 0
-    shed_burst_window_ms: float = 1000.0
     metrics_jsonl: Optional[str] = None  # periodic registry snapshots
     metrics_every: int = 16              # rounds between snapshots
-    # cross-replica timeline identity: ``replica`` stamps every exported
-    # event's Chrome ``pid`` (and a process_name metadata row), so
-    # per-replica trace files merge into one timeline
-    # (export.merge_chrome_traces) with one process group per replica.
-    # ``epoch`` is a shared wall-clock origin (time.time() at fleet
-    # start): exports rebase their timestamps onto it, so replicas
-    # traced by SEPARATE tracers/processes line up on one clock.
+    # ``replica`` stamps every exported event's Chrome ``pid`` (and a
+    # process_name metadata row), so per-replica trace files merge into
+    # one timeline (export.merge_chrome_traces) with one process group
+    # per replica; exports share the Unix clock, so no origin is needed.
     replica: Optional[int] = None
-    epoch: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -85,6 +89,10 @@ class Span:
     t0: float
     t1: float
     attrs: Dict
+    # a ``device=True`` span's CUDA timer until drain turns it into
+    # ``attrs["device_ms"]``
+    timer: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
 
     @property
     def dur_ms(self) -> float:
@@ -105,12 +113,15 @@ class _ThreadBuf:
 
 class _SpanCtx:
     """Context manager for one live span (one per ``span()`` call)."""
-    __slots__ = ("_tracer", "_buf", "name", "attrs", "sid", "_t0")
+    __slots__ = ("_tracer", "_buf", "name", "attrs", "sid", "_t0",
+                 "_device", "_timer")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict,
+                 device: bool = False):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self._device = device
 
     def __enter__(self):
         tr = self._tracer
@@ -118,11 +129,14 @@ class _SpanCtx:
         self._buf = buf
         self.sid = next(tr._ids)
         buf.stack.append(self.sid)
+        self._timer = _device_timer() if self._device else None
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
+        if self._timer is not None:
+            self._timer.stop()
         buf = self._buf
         buf.stack.pop()
         parent = buf.stack[-1] if buf.stack else 0
@@ -130,8 +144,15 @@ class _SpanCtx:
             buf.dropped += 1
         else:
             buf.spans.append(Span(self.name, self.sid, parent, buf.lane,
-                                  self._t0, t1, self.attrs))
+                                  self._t0, t1, self.attrs, self._timer))
         return False
+
+
+def _device_timer():
+    """A started CUDA timer on the current stream, or None off the card
+    (the torch-touching part lives in obs/device_timer.py)."""
+    from .device_timer import start
+    return start()
 
 
 class _NullSpan:
@@ -157,7 +178,7 @@ class Tracer:
         self.registry = registry        # span_ms histograms fed on drain
         self.recorder = recorder        # export.FlightRecorder or None
         self.t_origin = time.perf_counter()
-        self.wall_origin = time.time()  # epoch anchor for export rebasing
+        self.wall_origin = time.time()  # Unix time at t_origin
         self._ids = itertools.count(1)  # atomic under the GIL
         self._tls = threading.local()
         self._bufs: List[_ThreadBuf] = []
@@ -176,7 +197,12 @@ class Tracer:
         return buf
 
     def span(self, name: str, **attrs) -> _SpanCtx:
-        return _SpanCtx(self, name, attrs)
+        """A span; ``device=True`` also times it on the current CUDA
+        stream (any other ``device`` value is an ordinary attribute)."""
+        device = attrs.get("device")
+        if isinstance(device, bool):
+            del attrs["device"]
+        return _SpanCtx(self, name, attrs, device is True)
 
     def instant(self, name: str, **attrs):
         """Zero-duration marker span."""
@@ -201,6 +227,10 @@ class Tracer:
         for buf in bufs:
             n = len(buf.spans)
             if n:
+                for sp in buf.spans[:n]:
+                    if sp.timer is not None:
+                        sp.attrs["device_ms"] = sp.timer.ms()
+                        sp.timer = None
                 self.spans.extend(buf.spans[:n])
                 del buf.spans[:n]
                 moved += n
@@ -222,12 +252,11 @@ class Tracer:
         return moved
 
     def export_origin(self) -> float:
-        """The t_origin exports subtract: the tracer's own start, or —
-        with a shared ``epoch`` configured — the start rebased onto that
-        wall clock, so separately-traced replicas share one timeline."""
-        if self.cfg.epoch is None:
-            return self.t_origin
-        return self.t_origin - (self.wall_origin - self.cfg.epoch)
+        """The origin exports subtract from ``perf_counter`` stamps so
+        their timestamps land on the Unix-epoch clock, the one
+        ``torch.profiler``'s events use: a program trace and the
+        profiler's export of the same window make one timeline."""
+        return self.t_origin - self.wall_origin
 
     def finish(self):
         """Final drain + configured exports.  Idempotent."""
@@ -272,12 +301,50 @@ def active() -> Optional[Tracer]:
 
 def span(name: str, **attrs):
     """The instrumented-call-site helper: a real span when a tracer is
-    installed, the shared NULL_SPAN singleton otherwise."""
-    t = _active
+    installed or the profiler runs (``profiled``), the shared NULL_SPAN
+    singleton otherwise."""
+    t = _active or _profiled_window()
     return NULL_SPAN if t is None else t.span(name, **attrs)
 
 
 def instant(name: str, **attrs):
-    t = _active
+    t = _active or _profiled_window()
     if t is not None:
         t.instant(name, **attrs)
+
+
+# the profiled window: the tracer spans record into, with none installed,
+# while torch.profiler runs; ``_window_open`` falls when the profiler is
+# seen stopped, so the next profiled span starts a fresh window
+_window: Optional[Tracer] = None
+_window_open = False
+_window_lock = threading.Lock()
+
+
+def _profiler_running() -> bool:
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _profiled_window() -> Optional[Tracer]:
+    global _window, _window_open
+    if not _profiler_running():
+        _window_open = False
+        return None
+    if not _window_open:
+        with _window_lock:
+            if not _window_open:
+                _window = Tracer()
+                _window_open = True
+    return _window
+
+
+def profiled() -> Optional[Tracer]:
+    """The tracer of the current or last profiled window, drained; None
+    when no span has recorded under the profiler."""
+    global _window_open
+    if not _profiler_running():
+        _window_open = False
+    if _window is not None:
+        _window.drain()
+    return _window

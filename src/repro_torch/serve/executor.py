@@ -10,7 +10,11 @@ The executor contract:
   * ``take(key)`` — the finished result, blocking if still in flight;
     None if the key was never submitted (the engine then prepares
     inline).  Engine thread only.  Every submitted key must eventually
-    be taken or reset — ``pending()`` counts what hasn't been.
+    be taken or reset — ``pending()`` counts what hasn't been.  It
+    leaves where Stage A ran in ``last_take`` (``STAGE_A``): ``ready``
+    (finished at take), ``waited`` (the engine blocked on a busy
+    worker), ``stolen`` (never started, run on the engine thread) or
+    ``inline`` (never submitted).
   * ``reset()`` — drop pending speculation (end of a render() call).
     Idempotent.
   * ``close()`` — release worker resources.  Idempotent; the executor
@@ -58,6 +62,9 @@ def _available_devices() -> List[torch.device]:
 
 _placed = threading.local()
 
+# where a take found its Stage A (``last_take``), in report order
+STAGE_A = ("ready", "waited", "stolen", "inline")
+
 
 def placement() -> Optional[torch.device]:
     """The device this thread's Stage-A closure was placed on by a
@@ -80,6 +87,7 @@ class SyncExecutor:
 
     workers = 0
     backend = "sync"
+    last_take = None
 
     def __init__(self):
         self._done: Dict = {}
@@ -95,7 +103,9 @@ class SyncExecutor:
                 self._done[key] = fn()
 
     def take(self, key):
-        return self._done.pop(key, None)
+        out = self._done.pop(key, None)
+        self.last_take = "inline" if out is None else "ready"
+        return out
 
     def pending(self) -> int:
         """Submitted-but-not-taken keys (0 after a clean render())."""
@@ -155,6 +165,7 @@ class _FutureExecutor:
     """
 
     device = None     # the engine's card: where ``take`` hands results
+    last_take = None
 
     def __init__(self):
         self._futs: Dict[object, Tuple[Future, Callable]] = {}
@@ -174,12 +185,15 @@ class _FutureExecutor:
     def take(self, key):
         ent = self._futs.pop(key, None)
         if ent is None:
+            self.last_take = "inline"
             return None
         fut, fn = ent
         if fut.cancel():          # never started: steal it inline
+            self.last_take = "stolen"
             with trace_lib.span("executor.take", backend=self.backend,
                                 stolen=True):
                 return fn()
+        self.last_take = "ready" if fut.done() else "waited"
         # the span covers the engine-side WAIT for a busy worker — on an
         # idle executor it closes immediately; long takes here mean
         # speculation is not keeping ahead of admission

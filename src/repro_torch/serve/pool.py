@@ -193,6 +193,10 @@ class BlockPool:
         resident in the scene store deliver HERE (their one counted
         lookup) and never enter the pool.  The keys are computed on the
         host from one copy of the slot's sorted rays."""
+        with trace_lib.span("pool.add_slot", req=slot.req.rid):
+            self._add_slot(slot)
+
+    def _add_slot(self, slot):
         o_s, d_s = slot.sorted_rays(*slot.rays)
         items = list(slot.emit_blocks(o_s, d_s))
         dens_items = [it + (None, None, True)
@@ -201,9 +205,10 @@ class BlockPool:
             self.items.extend(it + (None, None, False) for it in items)
             self.items.extend(dens_items)
             return
-        kcs = scenecache_key.block_keys(
-            self.scenecache.cfg, slot.req.scene, self.acfg, o_s, d_s,
-            slot.budgets)
+        with trace_lib.span("scenecache.keys", blocks=len(items)):
+            kcs = scenecache_key.block_keys(
+                self.scenecache.cfg, slot.req.scene, self.acfg, o_s, d_s,
+                slot.budgets)
         for it, kc in zip(items, kcs):
             out = self.scenecache.lookup(kc[0])
             if out is None:
@@ -363,15 +368,8 @@ class BlockPool:
             budgets = torch.tensor([it[4] for it in batch] + [1] * n_pad,
                                    dtype=torch.int32, device=dev)
             # dispatch only — outputs are fetched in collect(), after the
-            # engine has overlapped Stage-A speculation.  With tracing
-            # on, the launch is bracketed with a profiler range so a
-            # device profile's timeline carries the same batch id as the
-            # host spans.
-            if trace_lib.active() is not None:
-                with torch.profiler.record_function(f"fused_march.batch{bid}"):
-                    out = march_for(group[0], group[1])(o_b, d_b, budgets)
-            else:
-                out = march_for(group[0], group[1])(o_b, d_b, budgets)
+            # engine has overlapped Stage-A speculation
+            out = march_for(group[0], group[1])(o_b, d_b, budgets)
         # dispatch-span attrs dict + launch-end timestamp ride the handle:
         # collect() stamps ``device_ms`` (launch -> outputs on the host)
         # back onto the already-closed span, splitting its host wall time
@@ -383,17 +381,25 @@ class BlockPool:
     def collect(self, inflight):
         """Fetch a dispatched batch and deliver/store its outputs.
 
-        The ``pool.collect`` span covers the device fetch wait — one
-        ``.cpu()`` per output, where the host waits for the batch's
-        march; its ``batch`` id matches the ``pool.dispatch`` span that
-        launched it, so a frame's lineage chains admission -> dispatch
-        -> collect."""
+        The ``pool.collect`` span covers the fetch and the delivery; its
+        child ``pool.fetch`` is the device fetch wait — one ``.cpu()``
+        per output, where the host waits for the batch's march.  Its
+        ``batch`` id matches the ``pool.dispatch`` span that launched
+        it, so a frame's lineage chains admission -> dispatch ->
+        collect; it carries the real blocks' ``budgets`` and marched
+        ``chunks`` and the ``density`` flag, the work the march did."""
         batch, followers, n_pad, out, bid, disp_attrs, t_launch = inflight
         with trace_lib.span("pool.collect", batch=bid,
                             blocks=len(batch),
-                            reqs=sorted({it[0].req.rid for it in batch})):
-            rgb, acc, depth, chunks, ray_chunks = (a.cpu().numpy()
-                                                   for a in out)
+                            reqs=sorted({it[0].req.rid for it in batch})
+                            ) as sp:
+            with trace_lib.span("pool.fetch", batch=bid):
+                rgb, acc, depth, chunks, ray_chunks = (a.cpu().numpy()
+                                                       for a in out)
+            if sp is not trace_lib.NULL_SPAN:
+                sp.attrs.update(budgets=[int(it[4]) for it in batch],
+                                chunks=chunks[:len(batch)].tolist(),
+                                density=batch[0][7])
             if disp_attrs is not None:
                 disp_attrs["device_ms"] = (time.perf_counter()
                                            - t_launch) * 1e3

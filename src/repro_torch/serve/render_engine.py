@@ -214,25 +214,27 @@ class RenderServingEngine:
                                         extra={"round": self._rounds})
 
     def _finalize(self, slot: admission.Slot) -> RenderRequest:
-        req = slot.finalize(self.acfg)
-        self.counters.note_finalized(req.stats, req.latency_s)
-        self.scheduler.note_finalized(slot)   # service-time EWMA feed
-        # only frames with full marched acc/depth feed the radiance cache
-        # (framecache safety invariant: warps never chain) — that means
-        # fully-rendered frames, plus density-REFRESHED warped frames
-        # (opt-in), whose warp-valid rays re-marched acc/depth through
-        # the color-free path.  The stored depth is the MARCH's per-ray
-        # termination depth — always pose-aligned (so even dilation-mode
-        # probe-reuse frames, whose probe maps carry depth=None, are
-        # cacheable) and sharper than the probe's stride-d proxy.
-        rad = self.radiance_caches.get(req.scene)
-        if rad is not None and slot.acc_full is not None:
-            R = req.cam.height * req.cam.width
-            dev = self.device
-            rad.store(req.cam, self.acfg,
-                      torch.tensor(req.image.reshape(R, 3), device=dev),
-                      torch.tensor(slot.acc_full, device=dev),
-                      torch.tensor(slot.depth_full, device=dev))
+        with trace_lib.span("slot.finalize", req=slot.req.rid):
+            req = slot.finalize(self.acfg)
+            self.counters.note_finalized(req.stats, req.latency_s)
+            self.scheduler.note_finalized(slot)   # service-time EWMA feed
+            # only frames with full marched acc/depth feed the radiance
+            # cache (framecache safety invariant: warps never chain) —
+            # fully-rendered frames, plus density-REFRESHED warped frames
+            # (opt-in), whose warp-valid rays re-marched acc/depth through
+            # the color-free path.  The stored depth is the MARCH's per-ray
+            # termination depth — always pose-aligned (so even
+            # dilation-mode probe-reuse frames, whose probe maps carry
+            # depth=None, are cacheable) and sharper than the probe's
+            # stride-d proxy.
+            rad = self.radiance_caches.get(req.scene)
+            if rad is not None and slot.acc_full is not None:
+                R = req.cam.height * req.cam.width
+                dev = self.device
+                rad.store(req.cam, self.acfg,
+                          torch.tensor(req.image.reshape(R, 3), device=dev),
+                          torch.tensor(slot.acc_full, device=dev),
+                          torch.tensor(slot.depth_full, device=dev))
         return req
 
     # ---------------------------------------------------------------- stats

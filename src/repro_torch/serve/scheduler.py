@@ -198,8 +198,11 @@ class Scheduler:
             # (take/steal + inline Stage A + Stage B) — the flight
             # recorder's stall trigger watches this span
             with trace_lib.span("admission.wait", req=req.rid,
-                                scene=req.scene):
+                                scene=req.scene) as sp:
                 prepared = ex.take(id(req))
+                self.counters.note_stage_a(ex.last_take)
+                if sp is not trace_lib.NULL_SPAN:
+                    sp.attrs["stage_a"] = ex.last_take
                 speculated = prepared is not None
                 if prepared is None:  # never speculated: A inline
                     prepared = admission.prepare(engine, req)

@@ -27,7 +27,7 @@ This module owns the invariant arithmetic: probe hits + misses + skips
 ``engine_stats`` publishes every key into an ``obs.metrics.Registry``
 when one is passed (the engine's), and the returned dict is then a READ
 of that registry — same keys, same values, but also available as
-Prometheus exposition and periodic JSONL snapshots.
+periodic JSONL snapshots.
 """
 from __future__ import annotations
 
@@ -101,6 +101,14 @@ class EngineCounters:
     # it is deliberately NOT in DETERMINISTIC_COUNTERS — it prices an
     # opt-in approximation tier, like the shed counters.
     ray_exit_samples_skipped: int = 0
+    # where each admission found its Stage A (executor ``last_take``):
+    # finished at take, waited on a busy worker, stolen back to the
+    # engine thread, or never submitted.  They sum to ``admissions`` and
+    # depend on worker timing, so they are not DETERMINISTIC_COUNTERS.
+    stage_a_ready: int = 0
+    stage_a_waited: int = 0
+    stage_a_stolen: int = 0
+    stage_a_inline: int = 0
     # per-round streaming-dispatch observability (engine thread only):
     # wall time of each dispatch_round->collect window and how many
     # batches it launched.  Wall times are TIMING, not scheduling — they
@@ -141,6 +149,11 @@ class EngineCounters:
         led.deadline_misses += missed
         led.latency_ms.observe(latency_s * 1e3)
 
+    def note_stage_a(self, how: str):
+        """Count one admission's Stage-A placement (executor.STAGE_A)."""
+        name = f"stage_a_{how}"
+        setattr(self, name, getattr(self, name) + 1)
+
     def note_round(self, wall_s: float, n_batches: int):
         """Record one dispatch_round->collect window."""
         self.march_ms.observe(wall_s * 1e3)
@@ -172,8 +185,8 @@ def engine_stats(counters: EngineCounters, probe_caches: Dict,
 
     With a registry, every key is published as a gauge and the returned
     dict is a read-back of those gauges — ``engine_stats()`` IS a
-    registry view, and the same numbers flow to the Prometheus text
-    exposition and the periodic JSONL snapshots.
+    registry view, and the same numbers flow to the periodic JSONL
+    snapshots.
     """
     c = counters
     out = {
@@ -202,6 +215,10 @@ def engine_stats(counters: EngineCounters, probe_caches: Dict,
         "samples_processed": c.samples_processed,
         "samples_reused": c.samples_reused,
         "ray_exit_samples_skipped": c.ray_exit_samples_skipped,
+        "stage_a_ready": c.stage_a_ready,
+        "stage_a_waited": c.stage_a_waited,
+        "stage_a_stolen": c.stage_a_stolen,
+        "stage_a_inline": c.stage_a_inline,
         # streaming-dispatch round observability: march wall-time
         # percentiles + how many batches each round launched (a
         # histogram {n_batches: rounds}); batches_per_round > 1 is the

@@ -1047,3 +1047,31 @@ def test_card_mesh_render_cell_matches_the_plain_field(cuda):
     torch.testing.assert_close(acc[order], want[1][0], rtol=1e-4, atol=1e-5)
     assert torch.equal(stats["chunks_per_block"], want[3])
     assert torch.equal(stats["ray_chunks_per_block"], want[4])
+
+
+def test_device_span_encloses_its_kernel_on_the_profilers_clock(cuda):
+    """A ``device=True`` span around a ``torch.cuda._sleep`` launch (its
+    ``spin_kernel``) and the wait for it, recorded under the profiler with no tracer installed:
+    its export on the Unix clock encloses the kernel's profiler interval
+    within 50 us, and its ``device_ms`` (CUDA events on the stream) is at
+    least the kernel's time, less the events' 1 us resolution."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with obs.span("sleep", device=True):
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+    tr = obs.profiled()
+    (sp,) = [s for s in tr.spans if s.name == "sleep"]
+    ev = obs.export.chrome_trace([sp], t_origin=tr.export_origin())[
+        "traceEvents"][-1]
+    (k,) = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() != DeviceType.CPU and "spin" in e.name()]
+    lo, hi = k.start_ns() / 1e3, (k.start_ns() + k.duration_ns()) / 1e3
+    assert ev["ts"] - 50.0 <= lo and hi <= ev["ts"] + ev["dur"] + 50.0
+    assert sp.attrs["device_ms"] >= k.duration_ns() / 1e6 - 1e-3
+    assert obs.span("sleep", device=True) is obs.NULL_SPAN

@@ -1,11 +1,14 @@
 """Port parity: the tracing and metrics layer (obs/) against ``repro.obs``.
 
-Metrics, percentiles and the Prometheus text equal the reference's on the
-same observations; the same span sequence gives the same span names,
-ids, parents, lanes and attrs; exports and flight-recorder dumps have the
-reference's schema (equal dicts, ``tools/check_trace.py`` finds nothing);
-tracing on and off give bit-identical frames and stats on a reuse
-trajectory, whose spans equal the reference's on the same trajectory.
+Metrics and percentiles equal the reference's on the same observations;
+the same span sequence gives the same span names, ids, parents, lanes and
+attrs; exports and flight-recorder dumps have the reference's schema
+(equal dicts, ``tools/check_trace.py`` finds nothing); tracing on and off
+give bit-identical frames and stats on a reuse trajectory, whose spans
+equal the reference's on the same trajectory.  The port's own: spans
+record under ``torch.profiler`` with no tracer installed, exports share
+the profiler's Unix clock, the frame's phase spans, the server's host
+spans and Stage-A placement counters, and the benchmark's span readers.
 """
 import json
 import sys
@@ -73,7 +76,6 @@ def test_registry_equal(tmp_path):
     values = np.random.default_rng(0).lognormal(0.0, 2.0, 100).tolist()
     t, j = _fill(tobs, values), _fill(jobs, values)
     assert t.snapshot() == j.snapshot()
-    assert t.prometheus() == j.prometheus()
     assert t.names() == j.names()
     lines = []
     for reg, name in ((t, "t.jsonl"), (j, "j.jsonl")):
@@ -159,39 +161,28 @@ def test_export_schema_equal(tmp_path, replica):
 
 def test_flight_recorder_and_triggers_equal(tmp_path):
     """The same spans through both recorders: the same firings and the
-    same dumped bytes; each package's trigger path and engine_tracer."""
+    same dumped bytes; the stall trigger ``engine_tracer`` arms."""
     dumps = []
     for mod in (tobs, jobs):
         rec = mod.export.FlightRecorder(capacity=4)
         stall = rec.dump_on(mod.export.stall_trigger(10.0),
                             tmp_path / f"{mod.__name__}_stall.json")
-        storm = rec.dump_on(mod.export.evict_storm_trigger(2, 50.0),
-                            tmp_path / f"{mod.__name__}_storm.json")
         spans = [mod.Span("admission.wait", i, 0, "engine", 0.01 * i,
                           0.01 * i + 1e-3 * (5 + 20 * (i % 2)), {})
                  for i in range(1, 6)]
-        spans += [mod.Span("scenecache.evict", 10 + i, 0, "engine",
-                           0.1 + 0.01 * i, 0.1 + 0.01 * i, {})
-                  for i in range(3)]
         fired = [rec.record([s]) for s in spans]
         rec.rearm()
         fired.append(rec.record(spans[:2]))
-        dumps.append((fired, stall.fired, stall.fired_on, storm.fired,
-                      storm.fired_on,
-                      (tmp_path / f"{mod.__name__}_stall.json").read_bytes(),
-                      (tmp_path / f"{mod.__name__}_storm.json").read_bytes()))
+        dumps.append((fired, stall.fired, stall.fired_on,
+                      (tmp_path / f"{mod.__name__}_stall.json").read_bytes()))
     assert dumps[0] == dumps[1]
-    assert (tobs.export.trigger_path("out/f.json", "shed_burst")
-            == jobs.export.trigger_path("out/f.json", "shed_burst"))
-    cfg = tobs.TraceConfig(stall_dump_ms=5.0, evict_storm_count=2,
-                           shed_burst_count=3,
+    cfg = tobs.TraceConfig(stall_dump_ms=5.0,
                            flight_path=str(tmp_path / "fl.json"))
     tr = tobs.engine_tracer(cfg)
     try:
         assert tobs.active() is tr
         assert [t.path for t in tr.recorder.triggers] == [
-            str(tmp_path / "fl.json"), str(tmp_path / "fl_evict_storm.json"),
-            str(tmp_path / "fl_shed_burst.json")]
+            str(tmp_path / "fl.json")]
     finally:
         tobs.uninstall(tr)
     assert tobs.engine_tracer(None) is None
@@ -282,7 +273,6 @@ def _engine_run(rcfg, n=6):
     done = {r.rid: r for r in eng.render(reqs)}
     st = eng.engine_stats()
     spans = list(eng.tracer.spans) if eng.tracer is not None else None
-    st["prometheus"] = eng.metrics.prometheus()
     eng.close()
     return done, st, spans
 
@@ -364,8 +354,7 @@ def test_engine_trace_reconstructs_lineage(tmp_path):
 
 
 def test_engine_stats_is_registry_read():
-    """engine_stats() keys survive the registry round-trip exactly, and the
-    same numbers appear in the Prometheus exposition."""
+    """engine_stats() keys survive the registry round-trip exactly."""
     from test_torch_render_serve import serve_cfgs
     _, st, _ = _engine_run(serve_cfgs(slots=2, blocks_per_batch=4)[1], n=4)
     for k in ("frames", "latency_ms_p50", "latency_ms_p99",
@@ -375,5 +364,4 @@ def test_engine_stats_is_registry_read():
         assert k in st, k
     assert st["frames"] == 4
     assert st["latency_ms_p99"] >= st["latency_ms_p50"] > 0
-    assert f"frames {st['frames']}" in st["prometheus"]
     assert max(st["batches_per_round"]) >= 1

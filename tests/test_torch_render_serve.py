@@ -39,6 +39,7 @@ from repro_torch.launch import render_serve as t_launch
 from repro_torch.serve import pool as tpool
 from repro_torch.serve import render_engine as tre
 from repro_torch.serve import stats as tstats
+from repro_torch.serve.executor import STAGE_A
 
 ACFG = dict(ns_full=48, probe_stride=4, candidates=(8, 16, 32), block_size=64,
             chunk=16)
@@ -172,7 +173,9 @@ def assert_parity(done_j, done_t, st_j, st_t, order=True):
     assert tstats.DETERMINISTIC_COUNTERS == jstats.DETERMINISTIC_COUNTERS
     for c in tstats.DETERMINISTIC_COUNTERS:
         assert st_t[c] == st_j[c], (c, st_t[c], st_j[c])
-    assert st_t.keys() == st_j.keys()
+    # the port's Stage-A placement counters have no reference twin
+    assert st_t.keys() - {f"stage_a_{how}" for how in STAGE_A} \
+        == st_j.keys()
     for k in ("batches", "pad_block_fraction", "scene_block_hits",
               "full_radiance_hits", "requests_shed", "requests_full"):
         assert st_t[k] == st_j[k], (k, st_t[k], st_j[k])
