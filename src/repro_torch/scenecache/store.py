@@ -23,6 +23,16 @@ insertion order, so two caches fed the same operation sequence always
 hold the same entries (tests/test_torch_scenecache.py holds this against
 the reference's store).
 
+The victim comes from an index, not a scan: two heaps of
+``(last_used, seq, key)``, one of redundant entries and one of entries
+alone in their cell.  Every resident entry has exactly one live item,
+the one its ``_Entry.item`` holds; a touch or a change of group files a
+new item and leaves the old one stale, to be dropped when it reaches a
+heap's top.  A cell's count crossing 1 <-> 2 moves exactly one other
+entry between the groups, so a store, a hit or an eviction files O(1)
+items, and the index is rebuilt whenever stale items outnumber live
+ones.  A store costs O(log N) amortised in the N resident entries.
+
 Outputs are stored as host numpy arrays (storage, not compute): the cache
 bounds HOST memory and never pins device buffers; a hit costs one dict
 lookup plus a copy into the consumer's block buffers on the device.
@@ -30,8 +40,8 @@ lookup plus a copy into the consumer's block buffers on the device.
 from __future__ import annotations
 
 import dataclasses
-from collections import Counter
-from typing import Dict, Optional
+import heapq
+from typing import Dict, Optional, Set
 
 import numpy as np
 
@@ -74,13 +84,16 @@ class _Entry:
     cell: tuple
     last_used: int
     seq: int
+    item: tuple = None   # its live item in the eviction index
 
 
 class SceneBlockCache:
     def __init__(self, cfg: SceneCacheConfig | None = None):
         self.cfg = cfg or SceneCacheConfig()
         self._entries: Dict[bytes, _Entry] = {}
-        self._cells: Counter = Counter()
+        self._cells: Dict[tuple, Set[bytes]] = {}   # cell -> resident keys
+        self._redundant: list = []   # heaps of (last_used, seq, key)
+        self._sole: list = []
         self._bytes = 0
         self._clock = 0
         self._seq = 0
@@ -117,6 +130,8 @@ class SceneBlockCache:
             return None
         self.hits += 1
         e.last_used = self._tick()
+        self._file(key, e)
+        self._compact()
         # hits only: a span per pool re-sweep miss would dominate the
         # trace; misses are visible as the marched blocks they become
         trace_lib.instant("scenecache.hit")
@@ -131,37 +146,85 @@ class SceneBlockCache:
         if out.nbytes > self.cfg.byte_budget:
             self.rejected += 1
             return False
-        with trace_lib.span("scenecache.store", bytes=out.nbytes):
+        with trace_lib.span("scenecache.store", bytes=out.nbytes) as sp:
             old = self._entries.pop(key, None)
             if old is not None:
-                self._drop_bookkeeping(old)
-            self._entries[key] = _Entry(out, cell, self._tick(), self._seq)
+                self._drop_bookkeeping(key, old)
+            e = self._entries[key] = _Entry(out, cell, self._tick(), self._seq)
             self._seq += 1
-            self._cells[cell] += 1
+            members = self._cells.setdefault(cell, set())
+            members.add(key)
+            if len(members) == 2:    # the cell's other entry turns redundant
+                self._refile(members - {key})
+            self._file(key, e)
             self._bytes += out.nbytes
+            examined = 0
             while self._bytes > self.cfg.byte_budget:
-                self._evict_one(exclude=key)
+                examined += self._evict_one()
+            self._compact()
             self.stores += 1
+            if sp is not trace_lib.NULL_SPAN:
+                sp.attrs["examined"] = examined
         return True
 
     # ----------------------------------------------------------- eviction
-    def _drop_bookkeeping(self, e: _Entry):
-        self._cells[e.cell] -= 1
-        if self._cells[e.cell] <= 0:
+    def _heap(self, e: _Entry) -> list:
+        """The heap of ``e``'s eviction group."""
+        return self._redundant if len(self._cells[e.cell]) > 1 else self._sole
+
+    def _file(self, key: bytes, e: _Entry):
+        """File ``e``'s item under its group and recency; the item it
+        had goes stale."""
+        e.item = (e.last_used, e.seq, key)
+        heapq.heappush(self._heap(e), e.item)
+
+    def _refile(self, keys):
+        for k in keys:
+            self._file(k, self._entries[k])
+
+    def _compact(self):
+        """Rebuild both heaps from the live items once stale ones
+        outnumber them, so that touches (a pool re-swept every round
+        re-touches its keys) cannot grow the index without bound."""
+        if len(self._redundant) + len(self._sole) <= 2 * len(self._entries):
+            return
+        self._redundant, self._sole = [], []
+        for key, e in self._entries.items():
+            e.item = (e.last_used, e.seq, key)
+            self._heap(e).append(e.item)
+        heapq.heapify(self._redundant)
+        heapq.heapify(self._sole)
+
+    def _drop_bookkeeping(self, key: bytes, e: _Entry):
+        members = self._cells[e.cell]
+        members.discard(key)
+        if len(members) == 1:        # the cell's last entry turns sole
+            self._refile(members)
+        elif not members:
             del self._cells[e.cell]
         self._bytes -= e.out.nbytes
 
-    def _evict_one(self, exclude: bytes | None = None):
-        """Evict exactly one entry by the coverage-aware LRU total order."""
-        victim_key = min(
-            (k for k in self._entries if k != exclude),
-            key=lambda k: (self._cells[self._entries[k].cell] <= 1,
-                           self._entries[k].last_used,
-                           self._entries[k].seq))
-        e = self._entries.pop(victim_key)
-        self._drop_bookkeeping(e)
-        self.evictions += 1
-        trace_lib.instant("scenecache.evict", bytes=e.out.nbytes)
+    def _evict_one(self) -> int:
+        """Evict exactly one entry by the coverage-aware LRU total order;
+        returns the index items inspected, stale ones included.
+
+        The key just stored is never the victim, with no test for it: it
+        is the newest entry, so it would head its group only alone
+        there.  It is never alone among the redundant (its cell holds
+        an older one), and alone among the sole with no redundant entry
+        it is the only entry, which fits the budget."""
+        examined = 0
+        for heap in (self._redundant, self._sole):
+            while heap:
+                item = heapq.heappop(heap)
+                examined += 1
+                e = self._entries.get(item[2])
+                if e is not None and e.item is item:
+                    del self._entries[item[2]]
+                    self._drop_bookkeeping(item[2], e)
+                    self.evictions += 1
+                    trace_lib.instant("scenecache.evict", bytes=e.out.nbytes)
+                    return examined
 
     # ------------------------------------------------------ serialization
     def dump_entry(self, key: bytes) -> Optional[bytes]:
@@ -192,6 +255,7 @@ class SceneBlockCache:
         field's weights)."""
         self._entries.clear()
         self._cells.clear()
+        self._redundant, self._sole = [], []
         self._bytes = 0
 
     # -------------------------------------------------------------- stats

@@ -259,7 +259,12 @@ def test_tracing_on_off_bit_identical_and_spans_equal(tmp_path):
     assert check_trace.check_file(tmp_path / "trace.json") == []
     jtr = jobs.Tracer(jobs.TraceConfig())
     _trajectory(jfc, jsc_, jpl, jsc, fj, jtr)
-    assert _span_tree(tr) == _span_tree(jtr)
+    # the port's store spans also carry the eviction index's ``examined``
+    got = _span_tree(tr)
+    assert all(isinstance(a.get("examined"), int) for n, _, a in got
+               if n == "scenecache.store")
+    assert [(n, p, {k: v for k, v in a.items() if k != "examined"})
+            for n, p, a in got] == _span_tree(jtr)
 
 
 # ------------------------------------------------------ engine integration

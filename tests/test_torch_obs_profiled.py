@@ -246,9 +246,10 @@ def _engine_run(workers: int, n: int = 12):
 def test_engine_stage_a_tallies_and_host_spans(workers):
     """``admission.wait``'s ``stage_a`` tallies equal the engine's
     placement counters and sum to ``admissions``; ``pool.collect``
-    budgets and chunks count ``blocks_marched``; the engine lane's
-    top-level spans are the named phases and, with Stage A on the engine
-    thread, cover at least 90 % of ``render()``.  (With CPU workers the
+    budgets and chunks count ``blocks_marched``, and its stores carry
+    ``examined``; the engine lane's top-level spans are the named phases
+    and, with Stage A on the engine thread, cover at least 90 % of
+    ``render()``.  (With CPU workers the
     engine thread also waits for the interpreter lock between spans;
     the card's run measures that case, PERF.md.)"""
     done, st, spans, wall = _engine_run(workers)
@@ -264,9 +265,12 @@ def test_engine_stage_a_tallies_and_host_spans(workers):
                for c in collects)
     by = {s.sid: s for s in spans}
     for name, parent in (("pool.fetch", "pool.collect"),
-                         ("scenecache.keys", "pool.add_slot")):
+                         ("scenecache.keys", "pool.add_slot"),
+                         ("scenecache.store", "pool.collect")):
         kids = [s for s in spans if s.name == name]
         assert kids and all(by[s.parent].name == parent for s in kids)
+    assert all(s.attrs["examined"] == 0 for s in spans
+               if s.name == "scenecache.store")   # 4 MiB: nothing evicted
     engine = {s.lane for s in spans if s.name == "pool.dispatch_round"}
     assert len(engine) == 1
     top = [s for s in spans if s.lane in engine and s.parent == 0]
@@ -334,6 +338,10 @@ def _built_spans():
         S("frame.sort", 13, 0, "MainThread", 4.1, 4.2, {"device_ms": 0.75}),
         S("frame.unsort", 14, 0, "MainThread", 4.2, 4.3,
           {"device_ms": 0.5}),
+        S("scenecache.store", 15, 11, "MainThread", 3.1, 3.14,
+          {"bytes": 81984, "examined": 2}),
+        S("scenecache.store", 16, 11, "MainThread", 3.14, 3.2,
+          {"bytes": 81984, "examined": 1}),
     ]
 
 
@@ -341,7 +349,8 @@ def _built_spans():
     ("serve.keys_ms", 60.0), ("serve.finalize_ms", 15.0),
     ("serve.stage_a_engine_ms", 15.0), ("serve.fetch_wait_ms", 50.0),
     ("serve.stage_a_inline_share", 50.0), ("pipeline.interp_ms", 0.75),
-    ("pipeline.sort_ms", 0.375), ("pipeline.unsort_ms", 0.25)])
+    ("pipeline.sort_ms", 0.375), ("pipeline.unsort_ms", 0.25),
+    ("serve.store_ms", 50.0)])
 def test_span_readers(name, want):
     """Each reader's value on a built span list of two frames, and None
     with no spans (a program without the window, or ``--trace 0``)."""

@@ -2,7 +2,9 @@
 reference's.
 
 Block keys and serialised records byte for byte in both directions, the
-store's hit / miss / eviction sequence and stats under one byte budget,
+store's hit / miss / eviction sequence and stats under one byte budget
+(short and 3,000-op sequences, the eviction order's edges) and the work
+its eviction index does,
 shard routing; ``render_adaptive_cached``'s all-miss call bit-equal to the
 port's ``render_adaptive`` and, against the reference's, rgb / acc / depth
 within rtol 1e-4 / atol 1e-5 with chunks, budgets, hits and misses exact.
@@ -18,6 +20,7 @@ from repro import scenecache as jsc_
 from repro.core import fields as jfields
 from repro.core import pipeline as jpl
 from repro.core import scene as jsc
+from repro_torch import obs as tobs
 from repro_torch import scenecache as tsc_
 from repro_torch.core import fields as tfields
 from repro_torch.core import pipeline as tpl
@@ -111,13 +114,17 @@ def _ops(seed, n_ops=80):
 
 
 def _replay(mod, cache, ops):
-    """Per op: the lookup's result or the store's return, the resident
-    keys in order, and the stats."""
+    """Per op: the lookup's result, the store's or load's return or
+    None for a clear, the resident keys in order, and the stats."""
     trace = []
     for op in ops:
         if op[0] == "lookup":
             out = cache.lookup(op[1])
             r = None if out is None else (out.rgb.tobytes(), out.chunks)
+        elif op[0] == "clear":
+            r = cache.clear()
+        elif op[0] == "load":
+            r = cache.load_entry(op[1])
         else:
             r = cache.store(op[1], op[2], *op[3], op[4])
         keys = (list(cache._entries) if hasattr(cache, "_entries")
@@ -161,6 +168,140 @@ def test_sharded_sequence_identical(shards):
     finally:
         t.close()
         j.close()
+
+
+def _long_ops(seed, n_cells, n_ops=3000):
+    """~3,000 ops over 600 keys, a third of them lookups, in three
+    phases: stores into ``n_cells`` cells (about six resident entries a
+    cell under a 300-entry budget, so evictions take the redundant and
+    cells keep crossing 1 <-> 2), then stores into fresh cells (the
+    redundant run out and the sole evict), then ``n_cells`` again."""
+    rng = np.random.default_rng(seed)
+    keys = [rng.bytes(16) for _ in range(600)]
+    out = _out(rng, 16)
+    ops = []
+    for i in range(n_ops):
+        k = keys[rng.integers(0, len(keys))]
+        if rng.integers(0, 3) == 2:
+            ops.append(("lookup", k))
+            continue
+        wide = n_ops // 3 <= i < 2 * n_ops // 3
+        cell = ("s", int(rng.integers(n_cells, 100_000) if wide
+                         else rng.integers(0, n_cells)))
+        ops.append(("store", k, cell, out, int(rng.integers(1, 4))))
+    return ops
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+@pytest.mark.parametrize("seed,n_cells", [(0, 40), (1, 50), (2, 60), (3, 50)])
+def test_store_sequence_identical_at_scale(seed, n_cells, shards):
+    """The indexed eviction picks the reference scan's victim: 3,000 ops
+    under a 300-entry budget give every lookup's result, the resident
+    keys in order and the stats of the reference store after each op,
+    through a plain store (``shards`` 0) and a two-shard one."""
+    ops = _long_ops(seed, n_cells)
+    nbytes = tsc_.BlockOutput(*_out(np.random.default_rng(0), 16), 0).nbytes
+    caches = []
+    for mod in (tsc_, jsc_):
+        cfg = mod.SceneCacheConfig(byte_budget=300 * nbytes)
+        caches.append(mod.ShardedSceneCache(cfg, shards=shards) if shards
+                      else mod.SceneBlockCache(cfg))
+    try:
+        got, want = (_replay(mod, c, ops) for mod, c in zip((tsc_, jsc_),
+                                                             caches))
+        assert got == want
+    finally:
+        for c in caches:
+            if shards:
+                c.close()
+    st = got[-1][2]
+    assert st["evictions"] > 500 and st["hits"] > 100
+
+
+def _edge_ops():
+    """Op sequences under a budget of four 16-ray entries, each with the
+    resident keys it must end with."""
+    rng = np.random.default_rng(11)
+    small, big, huge = _out(rng, 16), _out(rng, 64), _out(rng, 128)
+    k = [bytes([i]) * 16 for i in range(10)]
+
+    def put(i, cell, out=small):
+        return ("store", k[i], ("s", cell), out, 2)
+
+    record = tsc_.entry_to_bytes(k[9], ("s", 0),
+                                 tsc_.BlockOutput(*small, 3))
+    return {
+        # k4 is stored as the sole group's one entry and a redundant one
+        # goes; k8 is stored beside k3, the only other of its group, which goes
+        "stored_key_alone_in_its_group": (
+            [put(0, 0), put(1, 0), put(2, 0), put(3, 0), put(4, 1),
+             put(5, 2), put(6, 2), put(7, 3), put(8, 0)],
+            [4, 6, 7, 8]),
+        "larger_than_the_budget": (
+            [put(0, 0), put(1, 0, huge), ("lookup", k[1]), put(2, 1)],
+            [0, 2]),
+        "several_evictions_in_one_store": (
+            [put(0, 0), put(1, 0), put(2, 1), put(3, 2), put(4, 3, big)],
+            [4]),
+        "clear_then_stores": (
+            [put(0, 0), put(1, 0), put(2, 1), put(3, 1), put(4, 2),
+             ("clear",), ("lookup", k[0]), put(5, 0), put(0, 0),
+             put(6, 1), put(7, 2), put(8, 2)],
+            [0, 6, 7, 8]),
+        "load_of_a_dumped_record": (
+            [put(0, 0), put(1, 0), put(2, 1), put(3, 2), ("load", record),
+             ("lookup", k[9]), put(9, 3), ("load", record)],
+            [1, 2, 3, 9]),
+        "hit_just_before_an_eviction": (
+            [put(0, 0), put(1, 0), put(2, 0), put(3, 0), ("lookup", k[0]),
+             put(4, 0), ("lookup", k[2]), put(5, 0)],
+            [0, 2, 4, 5]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_edge_ops()))
+def test_store_edge_cases(case):
+    """Each edge of the eviction order against the reference store, op by
+    op, and the resident keys it must end with."""
+    ops, keep = _edge_ops()[case]
+    nbytes = tsc_.BlockOutput(*_out(np.random.default_rng(0), 16), 0).nbytes
+    got, want = (_replay(mod, mod.SceneBlockCache(
+        mod.SceneCacheConfig(byte_budget=4 * nbytes)), ops)
+        for mod in (tsc_, jsc_))
+    assert got == want
+    assert got[-1][1] == [bytes([i]) * 16 for i in keep]
+
+
+def test_store_eviction_work_is_bounded():
+    """3,000 resident entries, then 2,000 stores that each evict, with
+    lookups between: the ``scenecache.store`` spans' ``examined`` (index
+    items an eviction inspected, stale ones included) stays small on
+    average, and the index never holds more than twice the entries."""
+    rng = np.random.default_rng(7)
+    out = _out(rng, 16)
+    nbytes = tsc_.BlockOutput(*out, 0).nbytes
+    cache = tsc_.SceneBlockCache(
+        tsc_.SceneCacheConfig(byte_budget=3000 * nbytes))
+    keys = [rng.bytes(16) for _ in range(5000)]
+    cells = [("s", int(c)) for c in rng.integers(0, 500, len(keys))]
+    for i in range(3000):
+        cache.store(keys[i], cells[i], *out, 1)
+    tr = tobs.Tracer()
+    tobs.install(tr)
+    try:
+        for i in range(3000, 5000):
+            cache.store(keys[i], cells[i], *out, 1)
+            for j in rng.integers(i - 3000, i, 3):
+                cache.lookup(keys[j])
+            assert len(cache._redundant) + len(cache._sole) <= 2 * len(cache)
+    finally:
+        tobs.uninstall(tr)
+    tr.drain()
+    examined = [s.attrs["examined"] for s in tr.spans
+                if s.name == "scenecache.store"]
+    assert len(examined) == 2000 and cache.evictions == 2000
+    assert cache.hits > 3000
+    assert np.mean(examined) <= 8
 
 
 @settings(max_examples=8, deadline=None)
