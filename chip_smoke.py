@@ -2,12 +2,13 @@
 """Chip smoke of the PyTorch/CUDA port: ``python3 chip_smoke.py`` from the
 root of a checkout, on a machine with one NVIDIA H100.
 
-1. Builds the seven CUDA kernels from the five sources in
+1. Builds the eight CUDA kernels from the six sources in
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
-   source, all started together).  ptxas must report a 0-byte stack frame
-   and no spills for the hash encode, the four register-tiled kernels
-   (density MLP, color MLP, fused field, fused march), the volume render
-   and the four flash-attention instantiations (bf16 and fp32, each at the
+   source, all started together).  ptxas must report no spills and a
+   0-byte stack frame (the VM march: ``TILE_STACK``'s 32 bytes) for the
+   hash encode, the four register-tiled kernels (density MLP, color MLP,
+   fused field, fused march), the VM march, the volume render and the
+   four flash-attention instantiations (bf16 and fp32, each at the
    head-dim bounds 128 and 256), whose registers it prints; the density,
    march and volume-render launchers must ask for the shared memory their
    wrappers reckon, and the flash-attention launcher must use the
@@ -299,7 +300,25 @@ root of a checkout, on a machine with one NVIDIA H100.
    ATTN_TOL["bf16"]; (c) the LM cell's analytic bound over its measured
    time at most ``DRYRUN_MAX_SHARE``; (d) the three field kernels launch
    in each render cell, the flash kernel once a layer a call in the LM
-   cell, and the kernels line lists all seven kernels.
+   cell, and the kernels line lists all eight kernels.
+
+16. ``[vm]``: the VM march (``kernels/vm_march.py``) on its main path's
+   shapes: a TensoRF VM-192 field (``configs/tensorf_vm.py`` CONFIG, the
+   300^3 grid; ``init_tensorf`` from ``SEED`` with the density tensors
+   times ``VM_GAIN``) through ``ops.tensorf_field_fns``, one 800x800
+   ``render_asdr_image`` at CAMERA with every launch count set to 0 just
+   before: exactly one ``vm_march`` launch and the frame's count map on
+   more than one rung.  Then the kernel and ``vm_march_plain`` on that
+   frame's sorted blocks (its 157 blocks of 4,096 rays over the card's
+   cooperative CTAs, a grid barrier a chunk step): rows bit-equal, chunk
+   counters and per-block anchors exact, the chunk counters the frame's,
+   and the anchors the frame counted (``ops.vm_anchor_count()``) and
+   those ``bench/metrics/_work_vm.py`` reckons from the counters; its
+   kernel row's bound is ``_work_vm.march_cost``'s operations and bytes.
+   The frame's Phase I gives short budgets to the rays that saturate
+   early, so none of its blocks can exit early; the same blocks once more
+   at the full budget, where blocks must exit early across CTAs, are
+   held bit for bit against the plain version too.
 
 Each phase's entry points run once with every launch count set to 0 just
 before, and the run fails unless each kernel of that path launched (for
@@ -321,8 +340,8 @@ asserted): the adaptive path and the early-exit path both run.
 
 Print lines start with ``[build]``, ``[kernel]``, ``[frame]``,
 ``[decoupled]``, ``[attention]``, ``[train]``, ``[reuse]``, ``[serve]``,
-``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]``, ``[encdec]``, ``[lmtrain]`` and
-``[dryrun]``.  Prints one
+``[lm]``, ``[moe]``, ``[ssm]``, ``[vlm]``, ``[encdec]``, ``[lmtrain]``,
+``[dryrun]`` and ``[vm]``.  Prints one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -407,14 +426,28 @@ TILE_KERNELS = {"hash_encode_kernel": "hash_encode",
                 "density_mlp_kernel": "fused_mlp",
                 "fused_march_kernel": "fused_march",
                 "volume_render_kernel": "volume_render",
+                "vm_march_kernel": "vm_march",
                 "flash_attention_bf16_kernel": "flash_attention",
                 "flash_attention_f32_kernel": "flash_attention"}
+# Stack frames allowed in place of 0 bytes, with why: the VM march's sinf
+# and cosf (the PE of its features, as torch.sin and torch.cos compute it
+# in its plain version) keep the library's slow argument reduction for
+# |x| > 105,615, whose 28-B array lives in local memory and is touched by
+# such arguments only.
+TILE_STACK = {"vm_march_kernel": 32}
 TILE_INSTANCES = {"flash_attention_bf16_kernel": ("<128>", "<256>"),
                   "flash_attention_f32_kernel": ("<128>", "<256>")}
 # The ragged march: blocks of a size that is not a multiple of 32, group
 # 3, budgets below the chunk among them, per-ray exit.
 RAGGED_B, RAGGED_GROUP = 1000, 3
 RAGGED_BUDGETS = (7, 20, 31, 12, 96, 192, 5, 48, 24, 33, 65, 100)
+# The [vm] phase's field: TensoRF's 0.1 randn init with the density planes
+# and lines times VM_GAIN, so the density feature (a sum of 48 products of
+# two such values) has a spread of ~15 about 0 and a quarter of the cube
+# is denser than softplus(0) x 75: a ray through it saturates within a
+# chunk or two, one that misses it does not, and Phase I's counts take
+# several rungs.
+VM_GAIN = 20.0
 # Ragged attention: a length that is a multiple of neither query tile and
 # a window whose first key falls mid-tile.
 RAGGED_SEQ, RAGGED_WINDOW = 333, 100
@@ -1002,6 +1035,107 @@ def check_kernels(field, bundle, cam, dev, reps=3):
         del out, out_p
     check_march_ragged(o, d, res, net, common, dev)
     return rows, ff_launches
+
+
+def run_vm(dev, reps=3):
+    """``[vm]``: the VM march at its main path's shapes (module docstring,
+    16).  Returns its kernel row and its launches on the frame's path."""
+    import numpy as np
+    import torch
+    from bench.metrics import _work_vm
+    from repro_torch import prng
+    from repro_torch.configs import tensorf_vm
+    from repro_torch.core import scene, tensorf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vm_march as VM
+
+    bundle = tensorf_vm.CONFIG
+    acfg = bundle.asdr
+    cfg = json.loads((ROOT / "bench" / "configs" / "tensorf-vm.json")
+                     .read_text())
+    params = tensorf.init_tensorf(bundle.model, prng.PRNGKey(SEED),
+                                  device=dev)
+    for g in ("density_plane", "density_line"):
+        params[g] = [t * VM_GAIN for t in params[g]]
+    fns = ops.tensorf_field_fns(tensorf.TensoRFField(bundle.model, params))
+    cam = scene.look_at_camera(*bundle.image_hw, **CAMERA)
+    (img, st, ms_frame), launches = path_launches(
+        ("vm_march",), lambda: render_frame(fns, acfg, cam, dev))
+    frame_anchors = ops.vm_anchor_count()
+    _, _, ms_frame2 = render_frame(fns, acfg, cam, dev)
+    budgets = st["budgets"].cpu().numpy()
+    chunks = st["chunks_per_block"].cpu().numpy()
+    early = int((chunks < -(-budgets // acfg.chunk)).sum())
+    rungs = np.unique(st["counts"].cpu().numpy())
+    print(f"[vm] {bundle.name} frame, {cam.height}x{cam.width}: "
+          f"{ms_frame:.1f} ms (first run), "
+          f"{ms_frame2:.1f} ms (second); launches {launches}; count rungs "
+          f"{rungs.tolist()}; {len(budgets)} blocks, {early} exit early; "
+          f"chunks per block {chunks.tolist()}; {frame_anchors} ray-anchors",
+          flush=True)
+    if launches["vm_march"] != 1:
+        raise AssertionError(f"[vm] the frame launched vm_march "
+                             f"{launches['vm_march']} times, not once")
+    if len(rungs) < 2:
+        raise AssertionError("[vm] the frame holds one rung of the ladder")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("[vm] non-finite frame")
+
+    o_s, d_s, bud = frame_blocks(fns, acfg, cam, dev)
+    tb = fns.fused
+    o = o_s.reshape(-1, 3).contiguous()
+    d = d_s.reshape(-1, 3).contiguous()
+    view = VM.view_features(d, tb.view_pe).contiguous()
+    kw = dict(block_size=acfg.block_size, chunk=acfg.chunk, group=acfg.group,
+              near=ops.NEAR32, far=ops.FAR32, log_eps_t=ops.LOG_EPS_T32,
+              early_term=acfg.early_termination,
+              white_background=acfg.white_background, with_color=True,
+              per_ray_exit=acfg.per_ray_early_exit)
+    nb = bud.shape[0]
+
+    def against_plain(budgets, tag, reps_k):
+        (out, anc), ms = timed(
+            lambda: VM.vm_march(o, d, view, budgets, tb, **kw), dev, reps_k)
+        (out_p, anc_p), plain_ms = host_ms(
+            lambda: VM.vm_march_plain(o, d, view, budgets, tb, **kw), dev)
+        blk = out.reshape(nb, acfg.block_size, VM.OUT_W)[:, 0, 5].int()
+        counters = (torch.equal(out[:, 5:7], out_p[:, 5:7])
+                    and torch.equal(anc, anc_p))
+        full = -(-budgets // acfg.chunk)
+        early = int((blk < full).sum())
+        print(f"[vm] vm_march on the frame's {nb} blocks, {tag}: counters "
+              f"and per-block anchors exact={counters}; rows equal="
+              f"{torch.equal(out, out_p)}; {early} blocks exit early; "
+              f"{int(anc.sum())} ray-anchors; {ms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms", flush=True)
+        if not counters:
+            raise AssertionError(f"[vm] {tag}: vm_march's counters differ "
+                                 "from the plain version's")
+        return out, out_p, anc, blk, early, ms, plain_ms
+
+    out, out_p, anc, blk, _, ms, plain_ms = against_plain(
+        bud, "the frame's budgets", reps)
+    same_frame = (torch.equal(bud, st["budgets"])
+                  and torch.equal(blk, st["chunks_per_block"]))
+    samples, anchors = _work_vm.march_counts(
+        bud.tolist(), blk.tolist(), acfg.block_size, acfg.chunk, acfg.group)
+    print(f"[vm] budgets and chunks as in the frame: {same_frame}; {samples} "
+          f"samples, {int(anc.sum())} ray-anchors (the frame's "
+          f"{frame_anchors}, reckoned {anchors})", flush=True)
+    if not same_frame or not (int(anc.sum()) == frame_anchors == anchors):
+        raise AssertionError("[vm] the march run alone is not the frame's")
+    f_out, f_out_p, _, _, early, _, _ = against_plain(
+        torch.full_like(bud, acfg.ns_full), "the full budget", 1)
+    if not torch.equal(f_out, f_out_p) or early < 1:
+        raise AssertionError(f"[vm] the full budget: rows differ from the "
+                             f"plain version's or no block exits early "
+                             f"({early})")
+    del f_out, f_out_p
+    flop, nbytes = _work_vm.march_cost(cfg, nb, samples, anchors)
+    row = kernel_row("vm_march", "vm_march.cu",
+                     "none (the JAX package has no VM field)", out, out_p,
+                     ms, plain_ms, flop, nbytes, exact=True)
+    return row, launches
 
 
 def sync(dev):
@@ -3875,12 +4009,13 @@ def run(dev, bundle, hw, attn, seq, wide, wide_seq, reps=3, train_kw=TRAIN,
     dry_launches = run_dryrun(dev)
     print(f"[dryrun] launches in the phase's measured runs: {dry_launches}",
           flush=True)
-    rows += [vr_row, fa_row]
-    launches.update(**frame_launches, **vr_launches,
+    vm_row, vm_launches = run_vm(dev, reps)
+    rows += [vr_row, fa_row, vm_row]
+    launches.update(**frame_launches, **vr_launches, **vm_launches,
                     flash_attention=sum(lm_launches.values())
                     + dry_launches["flash_attention"])
     names = {r["name"] for r in rows}
-    if len(names) != 7:
+    if len(names) != 8:
         raise AssertionError(f"[dryrun] gate (d): the kernels line lists "
                              f"{sorted(names)}")
     for r in rows:
@@ -3914,6 +4049,40 @@ def template_args(fn: str, kernel: str) -> str:
     return "<" + ", ".join(re.findall(r"Li(-?\d+)E", m.group(1))) + ">"
 
 
+def check_ptxas(built) -> dict:
+    """Phase 1's gate on ``_build.build_all()``'s logs: no spills and a
+    0-byte stack frame (``TILE_STACK``'s where it names the kernel) for
+    each of ``TILE_KERNELS`` (and each of ``TILE_INSTANCES``) that was
+    built; returns their registers."""
+    checked, registers = set(), {}
+    for name, info in built.items():
+        for fn, line in ptxas_lines(info["ptxas"]):
+            print(f"[build] {name} {fn}: {line}", flush=True)
+            kernel = next((k for k in TILE_KERNELS if k in fn), None)
+            if kernel is None:
+                continue
+            label = kernel + template_args(fn, kernel)
+            if line.startswith("Used "):
+                registers[label] = int(line.split()[1])
+            if "stack frame" in line:
+                if not line.startswith(f"{TILE_STACK.get(kernel, 0)} bytes "
+                                       "stack frame, 0 bytes spill stores, "
+                                       "0 bytes spill loads"):
+                    raise AssertionError(f"{fn}: ptxas reports {line}")
+                checked.add(kernel)
+                checked.add(label)
+    missing = [k for k, src in TILE_KERNELS.items()
+               if src in built and k not in checked]
+    missing += [k + a for k, args in TILE_INSTANCES.items()
+                if TILE_KERNELS[k] in built for a in args
+                if k + a not in checked]
+    if missing:
+        raise AssertionError(f"ptxas reported nothing for {missing}")
+    print(f"[build] stack frames 0 bytes (allowed: {TILE_STACK}), no spills; "
+          f"registers {registers}", flush=True)
+    return registers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3932,32 +4101,7 @@ def main() -> int:
     built = _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(built)}",
           flush=True)
-    checked, registers = set(), {}
-    for name, info in built.items():
-        for fn, line in ptxas_lines(info["ptxas"]):
-            print(f"[build] {name} {fn}: {line}", flush=True)
-            kernel = next((k for k in TILE_KERNELS if k in fn), None)
-            if kernel is None:
-                continue
-            label = kernel + template_args(fn, kernel)
-            if line.startswith("Used "):
-                registers[label] = int(line.split()[1])
-            if "stack frame" in line:
-                if not line.startswith("0 bytes stack frame, 0 bytes spill "
-                                       "stores, 0 bytes spill loads"):
-                    raise AssertionError(f"{fn}: ptxas reports {line}")
-                checked.add(kernel)
-                checked.add(label)
-    missing = [k for k, src in TILE_KERNELS.items()
-               if src in built and k not in checked]
-    missing += [k + a for k, args in TILE_INSTANCES.items()
-                if TILE_KERNELS[k] in built for a in args
-                if k + a not in checked]
-    if missing:
-        raise AssertionError(f"ptxas reported nothing for {missing}")
-    print(f"[build] 0-byte stacks, no spills; registers {registers}",
-          flush=True)
-
+    check_ptxas(built)
     dev = torch.device("cuda")
     bundle = ingp_asdr.CONFIG
     check_smem(bundle, gemma2_27b.CONFIG, gemma3_12b.CONFIG)

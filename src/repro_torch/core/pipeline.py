@@ -158,14 +158,16 @@ def march_blocks(fns: FieldFns, acfg: ASDRConfig, o_b, d_b, budgets,
     (rgb (N,B,3), acc (N,B), depth (N,B), chunks (N,), ray_chunks (N,B)).
 
     The backend seam for Phase II: with ``march_backend == "fused"`` and a
-    FieldFns carrying fused-march resources (kernels.ops.field_fns), the
-    whole batch runs as ONE kernel launch; otherwise the chunked reference
-    march above runs over groups of blocks.  Both keep the same
+    FieldFns carrying kernel resources, the whole batch runs as ONE kernel
+    launch, the one the resources are for (``kernels.ops.march_fused``:
+    the fused march of ``ops.field_fns``, or the VM march of
+    ``ops.tensorf_field_fns``); otherwise the chunked reference march
+    above runs over groups of blocks.  All keep the same outputs and
     early-termination contract (identical chunks_done).
     """
     if acfg.march_backend == "fused" and fns.fused is not None:
         from ..kernels import ops as _kops  # lazy: core stays kernel-free
-        return _kops.fused_march_blocks(
+        return _kops.march_fused(
             fns.fused, acfg, o_b, d_b, budgets, density_only=density_only)
     N, B, _ = o_b.shape
     step = max(1, MARCH_SAMPLES_PER_CALL // (B * acfg.chunk))

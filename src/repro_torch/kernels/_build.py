@@ -33,7 +33,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hash_encode", "fused_mlp", "fused_march", "volume_render",
-           "flash_attention")
+           "flash_attention", "vm_march")
 FMAD_SOURCES = ("flash_attention",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

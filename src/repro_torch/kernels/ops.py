@@ -9,6 +9,9 @@
   volume_render(sigmas, anchors, deltas, group) -> (rgb (R, 3), acc (R,))
   fused_march_blocks(res, acfg, o, d, bud) -> (rgb, acc, depth, chunks,
                                                ray_chunks)
+  vm_march_blocks(res, acfg, o, d, bud)    -> the same five, for a VM field
+  march_fused(res, acfg, o, d, bud)        -> the one of the two that
+                                              ``res`` is for
   flash_attention(q, k, v, window, softcap) -> (B, S, H, Dh), the LM's
                                                prefill attention
 
@@ -18,6 +21,17 @@ CUDA kernels and which carries ``FusedMarchResources``, so
 Weights stay at their true widths, row-major (fan_in, fan_out) fp32,
 packed flat once per set of weight tensors (``packed_weights``, an LRU
 shared by every engine in the process).
+
+``tensorf_field_fns(field)`` does the same for a TensoRF VM field
+(``core/tensorf.py``): its density and color are the field's library
+operations (Phase I), and it carries ``VMMarchResources`` (the tensors
+laid out channels innermost, once), so the fused seam
+(``pipeline.march_blocks`` -> ``march_fused``) sends its Phase II to the
+VM march kernel (``kernels/vm_march.py``) and an NGP field's to the
+fused march, by the kind of resources the FieldFns carries; both return
+the same five outputs.  The ray-anchors the VM march evaluated are kept
+on the side and read by ``vm_anchor_count()``, as ``launch_counts()``
+is read.
 """
 from __future__ import annotations
 
@@ -30,13 +44,14 @@ import numpy as np
 import torch
 
 from ..core import mlp as mlp_lib
-from ..core import rendering, scene
+from ..core import rendering, scene, tensorf
 from ..core.fields import FieldFns, replicable
 from . import _build
 from . import flash_attention as FA
 from . import fused_march as FMA
 from . import fused_mlp as FM
 from . import hash_encode as HE
+from . import vm_march as VM
 from . import volume_render as VR
 
 TABLE_SUPPLIES = ("auto", "resident", "streamed")
@@ -198,11 +213,55 @@ def field_fns(field) -> FieldFns:
                       lambda device: field_fns(field.replica(device)))
 
 
+# Device-resident inputs of the VM march: a ``core.tensorf`` field's
+# tensors in the kernel's layout (``vm_march.pack_tables``).
+VMMarchResources = VM.VMTables
+
+
+def vm_march_blocks(tb: VMMarchResources, acfg, o_b, d_b, budgets,
+                    density_only: bool = False):
+    """The VM march over a batch of blocks: o_b/d_b (N, B, 3), budgets
+    (N,) -> (rgb (N,B,3), acc (N,B), depth (N,B), chunks (N,),
+    ray_chunks (N,B)), ``fused_march_blocks``' outputs; the ray-anchors it
+    evaluated go to ``vm_anchor_count()``.  The view rows are computed
+    once per ray here."""
+    N, B, _ = o_b.shape
+    o = o_b.float().reshape(N * B, 3).contiguous()
+    d = d_b.float().reshape(N * B, 3).contiguous()
+    view = None if density_only else VM.view_features(d, tb.view_pe).contiguous()
+    out, _ = VM.vm_march(
+        o, d, view, budgets.to(torch.int32).contiguous(), tb, block_size=B,
+        chunk=acfg.chunk, group=acfg.group, near=NEAR32, far=FAR32,
+        log_eps_t=LOG_EPS_T32, early_term=acfg.early_termination,
+        white_background=acfg.white_background, with_color=not density_only,
+        per_ray_exit=acfg.per_ray_early_exit)
+    out = out.reshape(N, B, VM.OUT_W)
+    return (out[:, :, 1:4], out[:, :, 0], out[:, :, 4],
+            out[:, 0, 5].to(torch.int32), out[:, :, 6].to(torch.int32))
+
+
+def march_fused(res, acfg, o_b, d_b, budgets, density_only: bool = False):
+    """The fused seam: a batch of blocks through the kernel ``res`` is
+    for, the VM march for ``VMMarchResources``, else the fused march."""
+    march = (vm_march_blocks if isinstance(res, VMMarchResources)
+             else fused_march_blocks)
+    return march(res, acfg, o_b, d_b, budgets, density_only=density_only)
+
+
+def tensorf_field_fns(field) -> FieldFns:
+    """A TensoRF field's library-op FieldFns (``core.tensorf.field_fns``)
+    carrying the VM march's resources."""
+    fns = tensorf.field_fns(field)._replace(
+        fused=VM.pack_tables(field.cfg, field.params()))
+    return replicable(fns, lambda device: tensorf_field_fns(
+        field.replica(device)))
+
+
 # the LM's prefill self-attention (``models/lm.py`` builds on it)
 flash_attention = FA.flash_attention
 
 KERNELS = (HE.hash_encode, FM.density_mlp, FM.color_mlp, FMA.fused_march,
-           FM.fused_field, VR.volume_render, FA.flash_attention)
+           FM.fused_field, VR.volume_render, FA.flash_attention, VM.vm_march)
 
 
 def launch_counts() -> dict:
@@ -211,6 +270,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Every kernel's launch count, and ``vm_anchor_count()``, to 0."""
     with _build.launch_lock:
         for k in KERNELS:
             k.launches = 0
+    VM.reset_anchor_count()
+
+
+# ray-anchors the VM march evaluated since ``reset_launch_counts``
+vm_anchor_count = VM.anchor_count

@@ -1075,3 +1075,41 @@ def test_device_span_encloses_its_kernel_on_the_profilers_clock(cuda):
     assert ev["ts"] - 50.0 <= lo and hi <= ev["ts"] + ev["dur"] + 50.0
     assert sp.attrs["device_ms"] >= k.duration_ns() / 1e6 - 1e-3
     assert obs.span("sleep", device=True) is obs.NULL_SPAN
+
+
+# ---- the VM march (TensoRF fields) -----------------------------------------
+
+@pytest.mark.parametrize("mode", ["color", "per_ray_exit", "density_only"])
+@pytest.mark.parametrize("widths", ["small", "vm-192"])
+def test_vm_march_matches_plain(widths, mode, cuda):
+    """The VM march kernel against its plain version on the card, bit for
+    bit (rows and per-block anchors): small widths at ragged blocks of 40
+    rays and chunk 16, and VM-192's widths at a 48^3 grid with the frame's
+    chunk 32 and every rung of the ladder."""
+    from repro_torch.core import tensorf
+    from repro_torch.kernels import vm_march as VM
+    import test_torch_tensorf as T
+
+    if widths == "small":
+        cfg = tensorf.TensoRFConfig(resolution=(16, 20, 24),
+                                    density_components=(4, 4, 4),
+                                    app_components=(8, 8, 8), app_dim=5,
+                                    hidden=16)
+        budgets, B, march = T.BUDGETS, T.BLOCK, T.MARCH
+    else:
+        cfg = tensorf.TensoRFConfig(resolution=(48, 48, 48))
+        budgets, B, march = (12, 24, 48, 96, 192, 12), 100, dict(chunk=32,
+                                                                  group=2)
+    _, tb, o, d, bud = T.march_inputs(cfg, budgets, B, device=cuda)
+    view = None if mode == "density_only" else VM.view_features(d, tb.view_pe)
+    kw = dict(block_size=B, near=ops.NEAR32, far=ops.FAR32,
+              log_eps_t=ops.LOG_EPS_T32, with_color=mode != "density_only",
+              per_ray_exit=mode == "per_ray_exit", **march)
+    before = ops.launch_counts()["vm_march"]
+    total = ops.vm_anchor_count()
+    got = VM.vm_march(o, d, view, bud, tb, **kw)
+    assert ops.launch_counts()["vm_march"] == before + 1
+    want = VM.vm_march_plain(o, d, view, bud, tb, **kw)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert ops.vm_anchor_count() == total + int(want[1].sum())

@@ -88,7 +88,8 @@ def test_cpu_tensors_take_the_plain_versions():
                       torch.ones((5, 8)), 2)
     assert ops.launch_counts() == {
         "hash_encode": 0, "density_mlp": 0, "color_mlp": 0, "fused_march": 0,
-        "fused_field": 0, "volume_render": 0, "flash_attention": 0}
+        "fused_field": 0, "volume_render": 0, "flash_attention": 0,
+        "vm_march": 0}
     assert not _build._libs
 
 
